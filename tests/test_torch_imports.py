@@ -1,0 +1,56 @@
+"""Static import audit: the port and chip_smoke.py import neither JAX nor
+anything of the reference package ``repro`` (``repro_torch`` is the port).
+
+Every ``.py`` under ``src/repro_torch/`` and ``chip_smoke.py`` is parsed
+with ``ast`` — nothing is imported or run.
+"""
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def forbidden_imports(tree: ast.AST) -> list[str]:
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                found.append(f"line {node.lineno}: {name}")
+    return found
+
+
+def test_the_port_has_files_to_audit():
+    assert len(FILES) > 10 and all(p.is_file() for p in FILES)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    assert forbidden_imports(tree) == []
+
+
+@pytest.mark.parametrize("src,bad", [
+    ("import jax", True),
+    ("import jax.numpy as jnp", True),
+    ("from jax import lax", True),
+    ("import repro", True),
+    ("from repro.graphs import Graph", True),
+    ("import repro.core.solver", True),
+    ("from repro_torch.graphs import Graph", False),
+    ("import repro_torch", False),
+    ("from . import build", False),
+    ("import numpy, torch", False),
+    ("def f():\n    import jax\n", True),
+])
+def test_audit_catches_forbidden_forms(src, bad):
+    assert bool(forbidden_imports(ast.parse(src))) is bad

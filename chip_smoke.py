@@ -11,7 +11,9 @@ Phases, one or more lines each; any failure exits non-zero:
                m=2,312,497) at block 256, unweighted and weighted+biased,
                each kernel is held against its plain PyTorch version and
                timed beside it, beside one library call where PyTorch has
-               one, and beside its bound from the H100's 3.35 TB/s;
+               one, and beside its bound from the H100's 3.35 TB/s
+               (gs_pass_multi at b = 8 rows from make_query_stream, some
+               frozen, and its b = 1 identity with gs_pass);
 4. solve    — the launcher's solve path (repro_torch.launch.pagerank_run)
                at full size with --handle-dangling for blocked,
                blocked_nosync, blocked_nosync_opt, nosync and barrier, with
@@ -22,8 +24,18 @@ Phases, one or more lines each; any failure exits non-zero:
                give the same iterations and ranks, and the residual curve
                of barrier, blocked and blocked_nosync run past the
                threshold shows how far 1e-8 sits above the float32 floor;
-6. profile  — one traced solve of blocked and of blocked_nosync: device
-               time by kernel and the device's busy share.
+6. profile  — one traced solve of blocked, blocked_nosync and ppr_blocked
+               (8 rows): device time by kernel and the device's busy share;
+7. ppr      — batched PPR at full size, 8 seed rows from
+               make_query_stream(n, 8, seed=0), --handle-dangling,
+               threshold 1e-8: ppr_blocked (the gs_pass_multi main path),
+               ppr_barrier and ppr_nosync, each row within L1 1e-4 of a
+               float64 scipy oracle; a uniform ppr_blocked row against the
+               global blocked fixed point; two ppr_blocked solves repeat;
+8. engine   — PPREngine on the kernel backend, 8 slots, the 32 queries of
+               make_query_stream(n, 32, seed=0) at threshold 1e-6: every
+               top-k is the oracle's, q/s and latency; the torch backend
+               answers with the same top-k.
 
 It then prints one JSON line naming every kernel, the nvidia-smi line, and
 last the JSON device record.  Without a CUDA device, or without the port's
@@ -43,14 +55,23 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-KERNEL_RTOL = 1e-5  # max abs error ≤ KERNEL_RTOL · max|plain| (f32 sum order)
+# A kernel agrees with its plain version when its max abs error is
+# ≤ KERNEL_RTOL · max|plain| and every entry is within KERNEL_RTOL · (its
+# |plain| + the mean |plain| of its rank row): the sums differ only in
+# float32 order.  The entry-wise bound catches a wrong entry far from a
+# PPR seed, which the bound on max|plain| alone would let pass.
+KERNEL_RTOL = 1e-5
 SOLVE_THRESHOLD = 1e-8
 FLOOR_ITERS = 150  # solves run past the threshold to find the float32 floor
 # L1 to the float64 oracle at full size: the reference's tests hold 1e-5 on
 # graphs of ≤ 256 vertices; float32 rank error grows with n.
 L1_BOUND = {"blocked_nosync_opt": 1e-3}
 L1_DEFAULT = 1e-4
+PPR_ROWS = 8  # seed rows of the batched solves and of gs_pass_multi
+ENGINE_QUERIES = 32
+ENGINE_THRESHOLD = 1e-6
+TIE = 1e-7  # oracle values this close may swap places in a top-k
+TOPK_VALUE_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -85,10 +106,33 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_ms(nbytes: float) -> float:
+    """Least time to move ``nbytes`` at the card's memory rate.  Every
+    kernel here does a few float32 operations per 4–8 bytes it must move,
+    far below the H100's 20 operations per byte of float32 rate over
+    memory rate, so each is bound by bytes."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def agreement(out, ref) -> tuple[float, float, float]:
+    """Max abs error, that over max|ref|, and the largest entry-wise error
+    over |ref| plus the mean |ref| of the entry's rank row (the last axis
+    of a batched ``(n_blocks, block, b)`` state indexes rows)."""
+    err = (out - ref).abs()
+    mag = ref.abs()
+    dims = (0, 1) if ref.dim() == 3 else None
+    scale = mag + mag.mean(dim=dims, keepdim=dims is not None)
+    return (float(err.max()), float(err.max() / mag.max()),
+            float((err / scale).max()))
+
+
+def check_agreement(name: str, out, ref) -> tuple[float, float, float]:
+    err, rel, ent = agreement(out, ref)
+    check(rel <= KERNEL_RTOL and ent <= KERNEL_RTOL,
+          f"{name} disagrees with its plain version: max abs err {err:.3e}, "
+          f"over max|plain| {rel:.3e}, entry-wise {ent:.3e} "
+          f"(bound {KERNEL_RTOL:g} each)")
+    return err, rel, ent
 
 
 def kernel_phase(g, gw, dev):
@@ -97,7 +141,7 @@ def kernel_phase(g, gw, dev):
     )
 
     rng = np.random.default_rng(0)
-    stats = {"spmv_csr_acc": {}, "gs_pass": {}}
+    stats = {"spmv_csr_acc": {}, "gs_pass": {}, "gs_pass_multi": {}}
     d = 0.85
     for tag, graph in (("unweighted", g), ("weighted", gw)):
         bg = BlockedGraph.build(graph, block=256, device=dev)
@@ -130,10 +174,7 @@ def kernel_phase(g, gw, dev):
 
         out, ref = spmv(), spmv_plain()
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        check(rel <= KERNEL_RTOL,
-              f"spmv_csr_acc ({tag}) disagrees: rel err {rel:.3e}")
+        err, rel, ent = check_agreement(f"spmv_csr_acc ({tag})", out, ref)
         check(torch.equal(out, spmv()), f"spmv_csr_acc ({tag}) not deterministic")
         vals = torch.ones(m, device=dev) if bg.weights is None else bg.weights
         csr = torch.sparse_csr_tensor(bg.in_ptr, bg.src, vals, (n_pad, n_pad))
@@ -143,36 +184,109 @@ def kernel_phase(g, gw, dev):
             max_abs_err=err, rel_err=rel,
             ms=time_ms(spmv, 50), plain_ms=time_ms(spmv_plain, 20),
             library_ms=time_ms(lambda: torch.mv(csr, flat), 50))
-        s["bound_ms"], s["bound_by"] = bound_ms(
-            4 * n_pad + csr_bytes + 4 * n_pad, (2 if bg.weights is not None else 1) * m)
+        s["bound_ms"] = bound_ms(4 * n_pad + csr_bytes + 4 * n_pad)
         print(f"kernel spmv_csr_acc {tag}: max_abs_err={err:.3e} "
-              f"rel={rel:.3e} (bound {KERNEL_RTOL:g}) ms={s['ms']:.4f} "
+              f"rel={rel:.3e} entry_rel={ent:.3e} (bound {KERNEL_RTOL:g}) "
+              f"ms={s['ms']:.4f} "
               f"plain_ms={s['plain_ms']:.4f} library_ms={s['library_ms']:.4f} "
               f"(torch.sparse CSR mv, max_abs_err={lib_err:.3e}) "
-              f"bound_ms={s['bound_ms']:.4f} ({s['bound_by']})", flush=True)
+              f"bound_ms={s['bound_ms']:.4f} (bytes)", flush=True)
 
         out, ref = gs(), gs_plain()
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        check(rel <= KERNEL_RTOL, f"gs_pass ({tag}) disagrees: rel err {rel:.3e}")
+        err, rel, ent = check_agreement(f"gs_pass ({tag})", out, ref)
         check(torch.equal(out[frozen], pr[frozen]),
               f"gs_pass ({tag}) moved a frozen lane")
         check(torch.equal(out, gs()), f"gs_pass ({tag}) not deterministic")
-        rank_ops = 5 * n_pad  # commit: two multiplies, two adds, the mask
         s = stats["gs_pass"][tag] = dict(
             max_abs_err=err, rel_err=rel,
             ms=time_ms(gs, 20), plain_ms=time_ms(gs_plain, 3, warmup=1),
             library_ms=None)
         rank_bytes = 4 * n_pad * (4 + (bg.bias is not None)) + n_pad + 12
-        s["bound_ms"], s["bound_by"] = bound_ms(
-            rank_bytes + csr_bytes, (3 if bg.weights is not None else 2) * m + rank_ops)
+        s["bound_ms"] = bound_ms(rank_bytes + csr_bytes)
         print(f"kernel gs_pass {tag}: max_abs_err={err:.3e} rel={rel:.3e} "
-              f"(bound {KERNEL_RTOL:g}) ms={s['ms']:.4f} "
+              f"entry_rel={ent:.3e} (bound {KERNEL_RTOL:g}) ms={s['ms']:.4f} "
               f"plain_ms={s['plain_ms']:.4f} library_ms=null "
-              f"bound_ms={s['bound_ms']:.4f} ({s['bound_by']}; plus "
+              f"bound_ms={s['bound_ms']:.4f} (bytes; plus "
               f"{bg.n_blocks} dependent block steps per pass)", flush=True)
+        stats["gs_pass_multi"][tag] = multi_kernel_check(
+            graph, bg, tag, gs, params, csr_bytes)
     return stats
+
+
+def multi_kernel_check(graph, bg, tag, gs, params, csr_bytes):
+    """gs_pass_multi at b = PPR_ROWS rows of make_query_stream, rows 2 and
+    5 frozen, against its plain version; its b = 1 identity with gs_pass;
+    its time beside PPR_ROWS launches of gs_pass."""
+    from repro_torch.kernels.spmv import gs_pass, gs_pass_multi, gs_pass_multi_ref
+    from repro_torch.ppr.batched import bias_scaled, blocked_rows, teleport_from_seeds
+    from repro_torch.serving import make_query_stream
+
+    dev = bg.vmask.device
+    d = 0.85
+    b = PPR_ROWS
+    seeds = [q.seeds for q in make_query_stream(graph.n, b, seed=0)]
+    t = bias_scaled(teleport_from_seeds(seeds, graph.n), graph.bias)
+    tele = torch.as_tensor(blocked_rows(t.astype(np.float32), bg.n_blocks,
+                                        bg.block), device=dev)
+    rng = np.random.default_rng(2)
+    pr = tele * 0.5 + torch.as_tensor(
+        rng.random(tele.shape).astype(np.float32) / graph.n, device=dev
+    ) * bg.vmask[..., None]
+    dmass = torch.sum(pr * bg.dangling[..., None], dim=(0, 1))
+    coef = (1.0 - d) + d * dmass
+    frozen = torch.zeros(b, dtype=torch.bool, device=dev)
+    frozen[[2, 5]] = True
+    args = (bg.inv_out, bg.vmask, tele, coef, d, bg.in_ptr, bg.src, bg.weights,
+            frozen)
+
+    def multi():
+        return gs_pass_multi(pr, *args)
+
+    def multi_plain():
+        return gs_pass_multi_ref(pr, *args)
+
+    out, ref = multi(), multi_plain()
+    torch.cuda.synchronize()
+    err, rel, ent = check_agreement(f"gs_pass_multi ({tag})", out, ref)
+    check(torch.equal(out[..., frozen], pr[..., frozen]),
+          f"gs_pass_multi ({tag}) moved a frozen row")
+    check(torch.equal(out, multi()), f"gs_pass_multi ({tag}) not deterministic")
+    # b = 1, a uniform base and no dangling mass: exactly gs_pass
+    base = float(np.float32((1 - d) / graph.n))
+    one_params = torch.tensor([base, d, 0.0], device=dev)
+    x = pr[..., 0].contiguous()
+    one = gs_pass(x, bg.inv_out, bg.vmask, one_params, bg.in_ptr, bg.src,
+                  bg.weights)
+    one_m = gs_pass_multi(x[..., None].contiguous(), bg.inv_out, bg.vmask,
+                          bg.vmask[..., None].contiguous(),
+                          torch.tensor([base], device=dev), d, bg.in_ptr,
+                          bg.src, bg.weights)
+    torch.cuda.synchronize()
+    # the same sums in the same order, by design: equal bit for bit
+    check(torch.equal(one_m[..., 0], one),
+          f"gs_pass_multi ({tag}) at b = 1 differs from gs_pass by "
+          f"{float((one_m[..., 0] - one).abs().max()):.3e}")
+
+    def b_singles():
+        for _ in range(b):
+            gs()
+
+    n_pad = bg.n_blocks * bg.block
+    s = dict(max_abs_err=err, rel_err=rel, ms=time_ms(multi, 10),
+             plain_ms=time_ms(multi_plain, 3, warmup=1), library_ms=None,
+             singles_ms=time_ms(b_singles, 5, warmup=1))
+    # pr, tele read and the new state written at b floats a vertex; inv_out
+    # and vmask once; coef and the frozen mask
+    s["bound_ms"] = bound_ms(3 * 4 * n_pad * b + 2 * 4 * n_pad + 5 * b + csr_bytes)
+    print(f"kernel gs_pass_multi {tag} b={b}: max_abs_err={err:.3e} "
+          f"rel={rel:.3e} entry_rel={ent:.3e} (bound {KERNEL_RTOL:g}) frozen "
+          f"rows bit-identical; b=1 bit-identical to gs_pass; ms={s['ms']:.4f} "
+          f"plain_ms={s['plain_ms']:.4f} library_ms=null bound_ms="
+          f"{s['bound_ms']:.4f} (bytes; plus {bg.n_blocks} dependent block "
+          f"steps per pass); {b} launches of gs_pass: {s['singles_ms']:.4f} ms",
+          flush=True)
+    return s
 
 
 def solve_phase():
@@ -197,7 +311,7 @@ def solve_phase():
         counts = launch_counts()
         if dangling:
             launches.update({k: n for k, n in counts.items()
-                             if main_solve[k] == variant})
+                             if main_solve.get(k) == variant})
         it = rep["iterations"]
         for k, n in counts.items():
             want = it if expect.get(variant) == k else 0
@@ -252,21 +366,25 @@ def repeat_phase(g, dev):
 
 
 def profile_phase(g, dev):
-    """One traced solve per blocked variant: device time by kernel and the
+    """One traced solve per kernel variant: device time by kernel and the
     device's busy share of the traced wall (the trace adds host overhead,
     so the untraced wall of the solve phase is the end-to-end number)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.solver import build_variant
+    from repro_torch.serving import make_query_stream
 
-    for variant in ("blocked", "blocked_nosync"):
+    seeds = [q.seeds for q in make_query_stream(g.n, PPR_ROWS, seed=0)]
+    for variant, opts in (("blocked", {}), ("blocked_nosync", {}),
+                          ("ppr_blocked", {"seeds": seeds})):
         v, bundle = build_variant(variant, g, device=dev)
-        v.run(bundle, threshold=SOLVE_THRESHOLD, handle_dangling=True)  # warm-up
+        kw = dict(threshold=SOLVE_THRESHOLD, handle_dangling=True, **opts)
+        v.run(bundle, **kw)  # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            r = v.run(bundle, threshold=SOLVE_THRESHOLD, handle_dangling=True)
+            r = v.run(bundle, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -281,6 +399,145 @@ def profile_phase(g, dev):
         for e in rows[:6]:
             print(f"profile {variant}:   {e.self_device_time_total / 1e3:9.3f} ms "
                   f"x{e.count:<5d} {e.key[:70]}")
+
+
+def ppr_oracle(g, seed_sets, d=0.85, threshold=1e-12, max_iter=2000):
+    """Float64 PPR with dangling mass re-teleported onto each row: a scipy
+    sparse power iteration over all rows at once, independent of the port.
+    Returns ``{seed key: (n,) row}``, keyed by the sorted seed set."""
+    import scipy.sparse as sp
+
+    from repro_torch.ppr.batched import teleport_from_seeds
+
+    keys = sorted({tuple(sorted(set(s))) for s in seed_sets})
+    t = teleport_from_seeds(keys, g.n).T.copy()  # (n, rows)
+    inv = np.where(g.out_degree > 0, 1.0 / np.maximum(g.out_degree, 1), 0.0)
+    vals = inv[g.src] if g.weights is None else inv[g.src] * g.weights
+    a = sp.csr_matrix((vals, (g.dst, g.src)), shape=(g.n, g.n))
+    dang = (g.out_degree == 0).astype(np.float64)
+    pr = t.copy()
+    for it in range(1, max_iter + 1):
+        new = (1.0 - d) * t + d * (a @ pr) + d * (dang @ pr)[None, :] * t
+        err = np.abs(new - pr).max()
+        pr = new
+        if err <= threshold:
+            break
+    print(f"oracle: {len(keys)} seed sets, float64, {it} iterations to "
+          f"{err:.1e}", flush=True)
+    return {k: pr[:, i] for i, k in enumerate(keys)}
+
+
+def _key(seeds) -> tuple:
+    return tuple(sorted(set(int(s) for s in seeds)))
+
+
+def ppr_phase(g, dev, oracle):
+    """The batched solves at full size, each row against the oracle; the
+    ppr_blocked solve is the main path of gs_pass_multi."""
+    from repro_torch.core.pagerank import l1_norm
+    from repro_torch.core.solver import build_variant
+    from repro_torch.kernels.spmv import launch_counts, reset_launch_counts
+    from repro_torch.serving import make_query_stream
+
+    seeds = [q.seeds for q in make_query_stream(g.n, PPR_ROWS, seed=0)]
+    kw = dict(threshold=SOLVE_THRESHOLD, handle_dangling=True, seeds=seeds)
+    launches = None
+    results = {}
+    for variant in ("ppr_blocked", "ppr_barrier", "ppr_nosync"):
+        v, bundle = build_variant(variant, g, device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        r = v.run(bundle, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        want = r.iterations if variant == "ppr_blocked" else 0
+        check(counts["gs_pass_multi"] == want,
+              f"{variant}: gs_pass_multi launched {counts['gs_pass_multi']} "
+              f"times, expected {want}")
+        if variant == "ppr_blocked":
+            launches = counts["gs_pass_multi"]
+        check(tuple(r.pr.shape) == (PPR_ROWS, g.n) and bool(torch.isfinite(r.pr).all()),
+              f"{variant}: ranks of shape {tuple(r.pr.shape)} or not finite")
+        l1 = [l1_norm(r.pr[i], oracle[_key(s)]) for i, s in enumerate(seeds)]
+        check(max(l1) <= L1_DEFAULT,
+              f"{variant}: row L1 {max(l1):.3e} to the oracle > {L1_DEFAULT:g}")
+        print(f"ppr {variant} b={PPR_ROWS}: iterations={r.iterations} "
+              f"sweeps={r.sweeps} wall_s={wall:.4f} max_row_l1={max(l1):.3e} "
+              f"(bound {L1_DEFAULT:g}) launches={counts}", flush=True)
+        results[variant] = (v, bundle, r)
+    v, bundle, first = results["ppr_blocked"]
+    again = v.run(bundle, **kw)
+    check(again.iterations == first.iterations and torch.equal(again.pr, first.pr),
+          f"ppr_blocked: two solves differ ({first.iterations} vs "
+          f"{again.iterations} iterations)")
+    print(f"repeat ppr_blocked: two solves give {first.iterations} iterations "
+          f"and identical ranks", flush=True)
+    uniform = v.run(bundle, threshold=SOLVE_THRESHOLD, handle_dangling=True,
+                    seeds=None)
+    vg, bg = build_variant("blocked", g, device=dev)
+    glob = vg.run(bg, threshold=SOLVE_THRESHOLD, handle_dangling=True)
+    lin = l1_norm(uniform.pr[0], glob.pr)
+    check(lin <= L1_DEFAULT, f"teleport linearity: L1 {lin:.3e} > {L1_DEFAULT:g}")
+    print(f"linearity: uniform ppr_blocked row ({uniform.iterations} passes) vs "
+          f"global blocked ({glob.iterations} iterations): L1={lin:.3e} "
+          f"(bound {L1_DEFAULT:g}); to the oracle {l1_norm(uniform.pr[0], oracle[()]):.3e}",
+          flush=True)
+    return launches
+
+
+def _same_topk(idx, want, ref) -> bool:
+    """``idx`` is ``want`` up to swaps of vertices whose oracle values tie
+    within TIE."""
+    return idx.shape == want.shape and bool(
+        np.all((idx == want) | (np.abs(ref[idx] - ref[want]) <= TIE)))
+
+
+def engine_phase(g, dev, oracle):
+    """PPREngine on both backends over one query stream."""
+    from repro_torch.kernels.spmv import launch_counts, reset_launch_counts
+    from repro_torch.ppr import topk
+    from repro_torch.serving import PPREngine, make_query_stream
+
+    queries = make_query_stream(g.n, ENGINE_QUERIES, seed=0)
+    answers = {}
+    for backend in ("cuda", "torch"):
+        eng = PPREngine(g, slots=PPR_ROWS, threshold=ENGINE_THRESHOLD,
+                        handle_dangling=True, backend=backend, device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eng.drain(queries)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        check(sorted(r.qid for r in out) == list(range(ENGINE_QUERIES)),
+              f"engine {backend}: {len(out)} responses for {ENGINE_QUERIES} queries")
+        worst = 0.0
+        for r in out:
+            ref = oracle[_key(r.seeds)]
+            want, _ = topk(ref, r.indices.size)
+            check(_same_topk(r.indices, want, ref),
+                  f"engine {backend}: qid {r.qid} top-k {r.indices.tolist()} "
+                  f"is not the oracle's {want.tolist()}")
+            worst = max(worst, float(np.abs(r.values - ref[r.indices]).max()))
+        check(worst <= TOPK_VALUE_TOL,
+              f"engine {backend}: top-k values off the oracle by {worst:.3e}")
+        lat = np.array([r.latency_s for r in out]) * 1e3
+        print(f"engine {backend}: {ENGINE_QUERIES} queries, {PPR_ROWS} slots, "
+              f"threshold {ENGINE_THRESHOLD:g}: wall_s={wall:.4f} "
+              f"qps={ENGINE_QUERIES / wall:.2f} p50_ms={np.percentile(lat, 50):.3f} "
+              f"p99_ms={np.percentile(lat, 99):.3f} warm_hits={eng.warm_hits} "
+              f"occupancy={eng.slot_occupancy:.3f} top-k = oracle's "
+              f"(values within {worst:.2e}) launches={counts}", flush=True)
+        answers[backend] = {r.qid: r for r in out}
+    check(counts["gs_pass_multi"] == 0, "the torch backend launched gs_pass_multi")
+    for qid, r in answers["cuda"].items():
+        other = answers["torch"][qid].indices
+        check(_same_topk(other, r.indices, oracle[_key(r.seeds)]),
+              f"engine: qid {qid} top-k differs between the backends")
+    print("engine: the torch backend gives the same top-k for every query",
+          flush=True)
 
 
 def main() -> int:
@@ -309,7 +566,7 @@ def main() -> int:
     print(f"build: {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.1f}s",
           flush=True)
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(k in line for k in ("Function properties", "registers", "spill")):
             print(f"build: {line.strip()}")
 
     g = make_dataset("webStanford", scale_down=1)
@@ -324,9 +581,16 @@ def main() -> int:
     launches = solve_phase()
     repeat_phase(g, dev)
     profile_phase(g, dev)
+    from repro_torch.serving import make_query_stream
+
+    queries = make_query_stream(g.n, ENGINE_QUERIES, seed=0)
+    oracle = ppr_oracle(g, [q.seeds for q in queries] + [()])
+    launches["gs_pass_multi"] = ppr_phase(g, dev, oracle)
+    engine_phase(g, dev, oracle)
 
     replaces = {"spmv_csr_acc": "src/repro/kernels/spmv/kernel.py:67",
-                "gs_pass": "src/repro/kernels/spmv/kernel.py:181"}
+                "gs_pass": "src/repro/kernels/spmv/kernel.py:181",
+                "gs_pass_multi": "src/repro/kernels/spmv/kernel.py:323"}
     kernels = []
     for name, by_tag in stats.items():
         s = by_tag["unweighted"]  # the shapes the main path gives the kernel
@@ -336,7 +600,7 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(t["max_abs_err"] for t in by_tag.values()),
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+            "bound_by": "bytes", "library_ms": s["library_ms"],
         })
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     print(f"total: {time.perf_counter() - t_start:.1f}s")

@@ -7,12 +7,14 @@ from repro_torch.core.solver import (
     PageRankResult,
     Variant,
     barrier_schedule,
+    batched_barrier_schedule,
     build_variant,
     get_variant,
     list_variants,
     nosync_schedule,
     perforation,
     register_variant,
+    row_freeze,
     solve,
     solve_variant,
 )
@@ -32,12 +34,14 @@ __all__ = [
     "PageRankResult",
     "Variant",
     "barrier_schedule",
+    "batched_barrier_schedule",
     "build_variant",
     "get_variant",
     "list_variants",
     "nosync_schedule",
     "perforation",
     "register_variant",
+    "row_freeze",
     "solve",
     "solve_variant",
     "DeviceGraph",

@@ -95,6 +95,24 @@ def perforation(threshold: float) -> Transform:
     return transform
 
 
+def row_freeze(threshold: float, axes: tuple[int, ...] = (-1,)) -> Transform:
+    """Per-row convergence freeze for batched solves (the PPR subsystem).
+
+    A row whose observed delta (max over ``axes``, the non-batch axes of
+    the rank layout) is at or below ``threshold`` is frozen: it holds its
+    converged value while the other rows keep iterating.  The order is the
+    reference's: mask ``new`` with the old freeze first, then take the row
+    error of the masked update, then grow the freeze."""
+    thr = _f32(threshold)
+
+    def transform(old, new, frozen):
+        new = torch.where(frozen, old, new)
+        row_err = torch.amax(torch.abs(new - old), dim=axes, keepdim=True)
+        return new, frozen | (row_err <= thr).expand_as(frozen)
+
+    return transform
+
+
 def _apply_transforms(transforms: Sequence[Transform], old, new, frozen):
     for t in transforms:
         new, frozen = t(old, new, frozen)
@@ -125,6 +143,36 @@ def barrier_schedule(sweep: Callable[..., torch.Tensor],
         err = torch.max(torch.abs(new - state.pr))
         return EngineState(new, frozen, err.expand_as(state.perr),
                            state.it + 1, state.sweeps + 1)
+
+    return step
+
+
+def batched_barrier_schedule(
+    sweep: Callable[..., torch.Tensor],
+    transforms: Sequence[Transform] = (),
+    *,
+    pass_frozen: bool = False,
+    row_error: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
+) -> Callable:
+    """Jacobi over a batch of ``b`` independent solves sharing one graph.
+
+    Each batch row is one schedule unit: ``perr`` has shape ``(b,)`` (pass
+    ``n_units=b`` to :func:`solve`), so the stop rule fires only when every
+    row has converged, while a :func:`row_freeze` transform exits single
+    rows early.  ``row_error(new, old) -> (b,)`` reduces the non-batch
+    axes; the default takes the batch as axis 0.  ``pass_frozen`` is as in
+    :func:`barrier_schedule` (the blocked batched pass takes the freeze as
+    a kernel operand)."""
+
+    def step(state: EngineState) -> EngineState:
+        new = sweep(state.pr, state.frozen) if pass_frozen else sweep(state.pr)
+        new, frozen = _apply_transforms(transforms, state.pr, new, state.frozen)
+        if row_error is not None:
+            err = row_error(new, state.pr)
+        else:
+            err = torch.amax(torch.abs(new - state.pr),
+                             dim=tuple(range(1, new.ndim)))
+        return EngineState(new, frozen, err, state.it + 1, state.sweeps + 1)
 
     return step
 
@@ -314,6 +362,7 @@ def _ensure_registered() -> None:
     # Variants self-register at import; pull in every module that defines one.
     import repro_torch.core.pagerank  # noqa: F401
     import repro_torch.kernels.spmv.ops  # noqa: F401
+    import repro_torch.ppr.batched  # noqa: F401
 
 
 def list_variants() -> tuple[str, ...]:

@@ -81,4 +81,11 @@ def load() -> ctypes.CDLL:
     lib.spmv_csr_acc.restype = i
     lib.gs_pass.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p]
     lib.gs_pass.restype = i
+    lib.gs_pass_multi.argtypes = [p, p, p, p, p, p, ctypes.c_float, p, p, p,
+                                  i, i, i, p]
+    lib.gs_pass_multi.restype = i
+    lib.gs_pass_multi_smem_bytes.argtypes = [i, i]
+    lib.gs_pass_multi_smem_bytes.restype = ctypes.c_size_t
+    lib.smem_per_block_optin.argtypes = [i]
+    lib.smem_per_block_optin.restype = i
     return lib

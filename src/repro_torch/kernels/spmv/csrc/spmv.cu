@@ -1,6 +1,7 @@
-// Hand-written Hopper (sm_90a) kernels of the PageRank main path.
+// Hand-written Hopper (sm_90a) kernels of the PageRank main path and of
+// batched personalized PageRank.
 //
-// Both kernels read the graph as an in-CSR over dst vertices: in_ptr
+// The kernels read the graph as an in-CSR over dst vertices: in_ptr
 // (n_pad + 1 row pointers, padding rows empty), src (one source id per
 // edge, dst-sorted) and optional per-edge weights.  Vertices are grouped in
 // dst blocks of `block` rows, the Gauss-Seidel unit of the reference.
@@ -27,7 +28,8 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kChunk = 4096;         // edges staged in shared memory per round
 constexpr int kSpmvThreads = 256;    // spmv_csr_acc: one CTA per dst block
-constexpr int kGsThreads = 1024;     // gs_pass: the one persistent CTA
+constexpr int kGsThreads = 1024;     // gs_pass(_multi): the one persistent CTA
+constexpr int kChunkFloats = 32768;  // gs_pass_multi: staged values per round
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -152,6 +154,128 @@ gs_pass_kernel(float* pr, const float* __restrict__ inv_out,
   }
 }
 
+// gs_pass_multi: edges staged per round, kChunk for b <= 8 (so b = 1
+// stages exactly as gs_pass does), fewer for wider batches.
+__host__ __device__ inline int multi_chunk_edges(int b) {
+  return kChunkFloats / b < kChunk ? kChunkFloats / b : kChunk;
+}
+
+size_t multi_smem_bytes(int block, int b) {
+  return sizeof(float) * (static_cast<size_t>(multi_chunk_edges(b)) * b +
+                          static_cast<size_t>(block) * b) +
+         sizeof(int) * (block + 1);
+}
+
+// One blocked Gauss-Seidel pass over b rank rows at once, in place on `pr`
+// (the caller passes a copy of the previous state).  The state is
+// vertex-major, (n_blocks, block, b): the b rows of vertex v are the b
+// contiguous floats at pr[v*b], so an edge's gather reads them in one
+// 32 B sector at b = 8, and the in-CSR index stream is read once per edge
+// for the whole batch.  The walk is gs_pass_kernel's: block db sums from
+// `pr` as it stands (blocks below db at this pass's values), then, after
+// the barrier that ends the sum, commits
+//     new[v, j] = (tele[v, j] * coef[j] + d * acc[v, j]) * vmask[v]
+// for every row j not in `frozen`; a frozen row is not written and keeps
+// its value bit for bit.  coef[j] = (1-d) + d*dmass[j] is formed on the
+// card by the caller.  One thread stages one edge: its source id, then
+// the b contiguous values of that source, so each thread has b
+// independent loads in flight instead of a chain per value.  Each
+// vertex has one owner warp: for b <= 32 its lanes split into groups of
+// bp = next power of two >= b lanes, lane l sums row l % bp over every
+// (32/bp)-th edge of the slice, and an xor tree over lanes bp apart adds
+// the groups (b = 1 is gs_pass's own order); for b > 32 each lane sums
+// its rows serially.  Fixed order, no atomics.  Products and the epilogue
+// round as the plain version's separate torch ops do.
+__global__ void __launch_bounds__(kGsThreads)
+gs_pass_multi_kernel(float* pr, const float* __restrict__ inv_out,
+                     const float* __restrict__ vmask,
+                     const float* __restrict__ tele,
+                     const float* __restrict__ coef,
+                     const uint8_t* __restrict__ frozen, float d,
+                     const int* __restrict__ in_ptr,
+                     const int* __restrict__ src,
+                     const float* __restrict__ weights, int n_blocks,
+                     int block, int b) {
+  extern __shared__ float smem[];
+  const int chunk = multi_chunk_edges(b);
+  float* sm_val = smem;
+  float* sm_acc = smem + static_cast<size_t>(chunk) * b;
+  int* sm_ptr = reinterpret_cast<int*>(sm_acc + static_cast<size_t>(block) * b);
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  const int nwarps = blockDim.x / kWarp;
+  int bp = 1;
+  while (bp < b && bp < kWarp) bp <<= 1;
+  const int lane_row = lane % bp;       // b <= 32: the row this lane sums
+  const int lane_edge = lane / bp;      // and its first edge of the slice
+  const int edge_step = kWarp / bp;
+  const int rows_in_block = block * b;
+  for (int db = 0; db < n_blocks; ++db) {
+    const int v0 = db * block;
+    for (int i = tid; i <= block; i += blockDim.x) sm_ptr[i] = in_ptr[v0 + i];
+    for (int i = tid; i < rows_in_block; i += blockDim.x) sm_acc[i] = 0.f;
+    __syncthreads();
+    const int e0 = sm_ptr[0];
+    const int e1 = sm_ptr[block];
+    for (int c0 = e0; c0 < e1; c0 += chunk) {
+      const int c1 = min(c0 + chunk, e1);
+      for (int k = tid; k < c1 - c0; k += blockDim.x) {
+        const int e = c0 + k;
+        const int s = src[e];
+        const float inv = inv_out[s];
+        const float* row = pr + static_cast<size_t>(s) * b;
+        float* staged = sm_val + k * b;
+        if (weights != nullptr) {
+          const float w = weights[e];
+#pragma unroll 8
+          for (int j = 0; j < b; ++j) staged[j] = row[j] * inv * w;
+        } else {
+#pragma unroll 8
+          for (int j = 0; j < b; ++j) staged[j] = row[j] * inv;
+        }
+      }
+      __syncthreads();
+      for (int r = warp; r < block; r += nwarps) {
+        const int lo = max(sm_ptr[r], c0);
+        const int hi = min(sm_ptr[r + 1], c1);
+        if (lo >= hi) continue;  // uniform across the warp
+        if (b <= kWarp) {
+          float part = 0.f;
+          if (lane_row < b) {
+            for (int e = lo + lane_edge; e < hi; e += edge_step) {
+              part += sm_val[(e - c0) * b + lane_row];
+            }
+          }
+#pragma unroll
+          for (int off = kWarp / 2; off > 0; off >>= 1) {
+            const float other = __shfl_xor_sync(0xffffffffu, part, off);
+            if (off >= bp) part += other;
+          }
+          if (lane < b) sm_acc[r * b + lane] += part;
+        } else {
+          for (int j = lane; j < b; j += kWarp) {
+            float part = 0.f;
+            for (int e = lo; e < hi; ++e) part += sm_val[(e - c0) * b + j];
+            sm_acc[r * b + j] += part;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    for (int i = tid; i < rows_in_block; i += blockDim.x) {
+      const int r = i / b;
+      const int j = i - r * b;
+      if (frozen != nullptr && frozen[j]) continue;
+      const size_t idx = static_cast<size_t>(v0 + r) * b + j;
+      const float base = __fmul_rn(tele[idx], coef[j]);
+      pr[idx] = __fmul_rn(__fadd_rn(base, __fmul_rn(d, sm_acc[i])),
+                          vmask[v0 + r]);
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" int spmv_csr_acc(const float* contrib, const int* in_ptr,
@@ -176,5 +300,34 @@ extern "C" int gs_pass(float* pr, const float* inv_out, const float* vmask,
   gs_pass_kernel<<<1, kGsThreads, bytes, stream>>>(
       pr, inv_out, vmask, bias, frozen, params, in_ptr, src, weights,
       n_blocks, block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shared memory one gs_pass_multi CTA needs, and the most a CTA may
+// opt into on `device` (a negated cudaError_t on failure): the wrapper
+// rejects a (block, b) that does not fit before it launches.
+extern "C" size_t gs_pass_multi_smem_bytes(int block, int b) {
+  return multi_smem_bytes(block, b);
+}
+
+extern "C" int smem_per_block_optin(int device) {
+  int bytes = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return err == cudaSuccess ? bytes : -static_cast<int>(err);
+}
+
+extern "C" int gs_pass_multi(float* pr, const float* inv_out,
+                             const float* vmask, const float* tele,
+                             const float* coef, const uint8_t* frozen,
+                             float d, const int* in_ptr, const int* src,
+                             const float* weights, int n_blocks, int block,
+                             int b, cudaStream_t stream) {
+  const size_t bytes = multi_smem_bytes(block, b);
+  cudaError_t err = allow_smem(gs_pass_multi_kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gs_pass_multi_kernel<<<1, kGsThreads, bytes, stream>>>(
+      pr, inv_out, vmask, tele, coef, frozen, d, in_ptr, src, weights,
+      n_blocks, block, b);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-"""Wrappers of the hand-written CUDA kernels of the PageRank main path.
+"""Wrappers of the hand-written CUDA kernels of the PageRank main path and
+of batched personalized PageRank.
 
 Each wrapper checks its operands, allocates its output with ``torch.empty``
 and, for CUDA tensors, launches its kernel from ``csrc/spmv.cu`` on the
@@ -10,20 +11,29 @@ Each CUDA launch adds one to the wrapper's count (:func:`launch_counts`).
 Graph operands are the port's in-CSR (:class:`repro_torch.kernels.spmv.ops.BlockedGraph`):
 ``in_ptr`` int32 ``(n_blocks·block + 1,)``, ``src`` int32 ``(m,)``,
 optional ``weights`` float32 ``(m,)``; rank-shaped operands are float32
-``(n_blocks, block)``.
+``(n_blocks, block)``, and the batched state of :func:`gs_pass_multi` is
+float32 ``(n_blocks, block, b)``, vertex-major.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.spmv import build
-from repro_torch.kernels.spmv.ref import gs_pass_ref, spmv_csr_acc_ref
+from repro_torch.kernels.spmv.ref import (
+    gs_pass_multi_ref,
+    gs_pass_ref,
+    spmv_csr_acc_ref,
+)
 
 # Shared memory per CTA is 4·(4096 + block) + 4·(block + 1) bytes; this
 # bound keeps it well inside the 227 KB a CTA may use.
 MAX_BLOCK = 16384
+# gs_pass_multi stages b values per edge and a (block, b) accumulator in
+# shared memory; b is bounded here, and csrc/spmv.cu sizes the staging and
+# checks it against the card's per-CTA limit before each launch.
+MAX_BATCH = 64
 
-_LAUNCHES = {"spmv_csr_acc": 0, "gs_pass": 0}
+_LAUNCHES = {"spmv_csr_acc": 0, "gs_pass": 0, "gs_pass_multi": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -49,10 +59,12 @@ def _check(name: str, t: torch.Tensor | None, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_graph(x: torch.Tensor, in_ptr, src, weights) -> tuple[int, int]:
-    if x.dim() != 2:
-        raise ValueError(f"rank operand must be (n_blocks, block), got {tuple(x.shape)}")
-    n_blocks, block = x.shape
+def _check_graph(x: torch.Tensor, in_ptr, src, weights,
+                 layout: tuple[str, ...] = ("n_blocks", "block")) -> tuple[int, int]:
+    if x.dim() != len(layout):
+        raise ValueError(f"rank operand must be ({', '.join(layout)}), "
+                         f"got {tuple(x.shape)}")
+    n_blocks, block = x.shape[:2]
     if not 0 < block <= MAX_BLOCK:
         raise ValueError(f"block must be in (0, {MAX_BLOCK}], got {block}")
     if x.device.type not in ("cpu", "cuda"):
@@ -146,4 +158,69 @@ def gs_pass(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
         n_blocks, block, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "gs_pass")
     _LAUNCHES["gs_pass"] += 1
+    return out
+
+
+def gs_pass_multi(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
+                  tele: torch.Tensor, coef: torch.Tensor, d: float,
+                  in_ptr: torch.Tensor, src: torch.Tensor,
+                  weights: torch.Tensor | None = None,
+                  frozen_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """One blocked Gauss–Seidel pass over ``b`` rank rows; returns the new
+    ``(n_blocks, block, b)`` state (see
+    :func:`repro_torch.kernels.spmv.ref.gs_pass_multi_ref` for the exact
+    semantics).  ``tele`` is the teleport state in the same layout,
+    ``coef`` a float32 ``(b,)`` device tensor of per-row coefficients
+    ``(1-d) + d·dmass_row`` (so the dangling mass never leaves the card),
+    ``frozen_rows`` a bool ``(b,)`` mask of rows that keep their values.
+
+    Replaces the TPU kernel ``spmv_gs_pass_multi``
+    (src/repro/kernels/spmv/kernel.py), which holds the whole
+    ``(n_blocks, b, block)`` batch in VMEM and shares each tile's index
+    stream across the batch.  Bound: the order, as for :func:`gs_pass` —
+    a pass is ``n_blocks`` dependent block steps on one SM; its bytes (the
+    in-CSR once, the state and teleport rows once each) are far below
+    that.  Design: :func:`gs_pass`'s persistent CTA, with a vertex-major
+    state so that one edge's gather reads its ``b`` values from one
+    sector, the in-CSR read once per edge for all rows, and ``base``
+    formed in the epilogue from ``tele`` and ``coef`` instead of a
+    full-size operand.  With ``b = 1`` it computes exactly what
+    :func:`gs_pass` computes."""
+    n_blocks, block = _check_graph(pr, in_ptr, src, weights,
+                                   layout=("n_blocks", "block", "b"))
+    b = pr.shape[2]
+    if not 0 < b <= MAX_BATCH:
+        raise ValueError(f"batch b must be in (0, {MAX_BATCH}], got {b}")
+    dev = pr.device
+    _check("pr", pr, torch.float32, (n_blocks, block, b), dev)
+    _check("tele", tele, torch.float32, (n_blocks, block, b), dev)
+    for name, t in (("inv_out", inv_out), ("vmask", vmask)):
+        _check(name, t, torch.float32, (n_blocks, block), dev)
+    _check("coef", coef, torch.float32, (b,), dev)
+    _check("frozen_rows", frozen_rows, torch.bool, (b,), dev)
+    if dev.type == "cpu":
+        return gs_pass_multi_ref(pr, inv_out, vmask, tele, coef, d, in_ptr,
+                                 src, weights, frozen_rows)
+    if n_blocks * block * b >= 2**31:
+        raise ValueError("state overflows the kernel's int32 vertex offsets")
+    lib = build.load()
+    need = lib.gs_pass_multi_smem_bytes(block, b)
+    have = lib.smem_per_block_optin(dev.index)
+    if have < 0:
+        _raise_on(-have, "gs_pass_multi")
+    if need > have:
+        raise ValueError(f"block={block} with b={b} needs {need} B of shared "
+                         f"memory, over the {have} B a CTA may use on {dev}")
+    out = torch.empty_like(pr)
+    out.copy_(pr)
+    if n_blocks == 0:
+        return out
+    err = lib.gs_pass_multi(
+        out.data_ptr(), inv_out.data_ptr(), vmask.data_ptr(), tele.data_ptr(),
+        coef.data_ptr(), None if frozen_rows is None else frozen_rows.data_ptr(),
+        float(d), in_ptr.data_ptr(), src.data_ptr(),
+        None if weights is None else weights.data_ptr(),
+        n_blocks, block, b, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "gs_pass_multi")
+    _LAUNCHES["gs_pass_multi"] += 1
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the two main-path kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 They compute exactly what the CUDA kernels in ``csrc/spmv.cu`` compute, on
 the same in-CSR operands, with eager torch ops: the CPU tests hold them
@@ -59,3 +59,39 @@ def gs_pass_ref(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
             new = torch.where(fz[v0:v1], out[v0:v1], new)
         out[v0:v1] = new
     return out.reshape(n_blocks, block)
+
+
+def gs_pass_multi_ref(pr: torch.Tensor, inv_out: torch.Tensor,
+                      vmask: torch.Tensor, tele: torch.Tensor,
+                      coef: torch.Tensor, d: float, in_ptr: torch.Tensor,
+                      src: torch.Tensor, weights: torch.Tensor | None = None,
+                      frozen_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """One blocked Gauss–Seidel pass over ``b`` rank rows in the
+    vertex-major ``(n_blocks, block, b)`` layout.
+
+    Dst blocks are committed in order into a copy of ``pr``, as in
+    :func:`gs_pass_ref`: block ``db`` gathers ``pr[s, j]·inv_out[s]`` (times
+    the edge weight) from the copy as it stands, and commits
+    ``(tele·coef[j] + d·acc)·vmask`` for every row ``j`` after its whole
+    sum.  ``coef`` is the ``(b,)`` per-row base coefficient
+    ``(1-d) + d·dmass_row``; rows set in the bool ``(b,)`` ``frozen_rows``
+    keep their values."""
+    n_blocks, block, b = pr.shape
+    out = pr.clone().reshape(-1, b)
+    inv = inv_out.reshape(-1)
+    vm = vmask.reshape(-1, 1)
+    tl = tele.reshape(-1, b)
+    ptr = in_ptr.tolist()
+    for db in range(n_blocks):
+        v0, v1 = db * block, (db + 1) * block
+        e0, e1 = ptr[v0], ptr[v1]
+        s = src[e0:e1].long()
+        vals = out[s] * inv[s].unsqueeze(1)
+        if weights is not None:
+            vals = vals * weights[e0:e1].unsqueeze(1)
+        acc = torch.segment_reduce(vals, "sum", offsets=in_ptr[v0:v1 + 1] - e0)
+        new = (tl[v0:v1] * coef + d * acc) * vm[v0:v1]
+        if frozen_rows is not None:
+            new = torch.where(frozen_rows, out[v0:v1], new)
+        out[v0:v1] = new
+    return out.reshape(n_blocks, block, b)

@@ -7,7 +7,8 @@ dataset surrogate, on the GPU by default.
 It builds the surrogate, builds the variant's device bundle, solves, and
 prints the iterations, the error, the wall time, the L1 distance to the
 float64 oracle, the top-5 vertices, the device and the CUDA kernel launches
-of the solve.  ``--device cpu`` runs the same path on the CPU (the kernels'
+of the solve.  The ``ppr_*`` variants solve one uniform teleport row, the
+global question.  ``--device cpu`` runs the same path on the CPU (the kernels'
 plain versions).  ``--list`` prints the registry.
 
 The reference launcher's ``--store``, ``--ckpt`` and its ``query``,
@@ -92,6 +93,11 @@ def run(argv=None) -> dict:
               handle_dangling=args.handle_dangling, **opts)
     pr = (r.pr.detach().cpu().numpy() if isinstance(r.pr, torch.Tensor)
           else np.asarray(r.pr))
+    if pr.ndim == 2:
+        # ppr_* variants return a (b, n) batch; with no seeds passed b == 1
+        # and the one row is the uniform-teleport (global) solve
+        assert pr.shape[0] == 1, pr.shape
+        pr = pr[0]
     wall = time.perf_counter() - t0
     launches = {k: n - before[k] for k, n in launch_counts().items()}
 

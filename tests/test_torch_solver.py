@@ -50,6 +50,7 @@ THRESH = 1e-8
 CPU = "cpu"
 VERTEX_VARIANTS = ("barrier", "barrier_opt", "nosync", "nosync_opt")
 ALL_VARIANTS = VERTEX_VARIANTS + ("blocked", "blocked_nosync", "blocked_nosync_opt")
+PPR_VARIANTS = ("ppr_barrier", "ppr_nosync", "ppr_blocked")
 
 
 @pytest.fixture(autouse=True)
@@ -166,18 +167,19 @@ def test_engine_state_fields_match_reference():
 
 def test_registry_lists_the_slice():
     names = set(list_variants())
-    assert names == {"sequential", *ALL_VARIANTS}
+    assert names == {"sequential", *ALL_VARIANTS, *PPR_VARIANTS}
     for name in names:
         v = get_variant(name)
         assert v.description and v.layout and v.backend in BACKENDS
     assert {get_variant(n).backend for n in ALL_VARIANTS[4:]} == {"cuda"}
+    assert get_variant("ppr_blocked").backend == "cuda"
 
 
 def test_registry_does_not_touch_the_reference():
     from repro.core.solver import list_variants as ref_list_variants
 
-    assert not {"blocked", "blocked_nosync", "blocked_nosync_opt"} \
-        & set(ref_list_variants())
+    assert not {"blocked", "blocked_nosync", "blocked_nosync_opt",
+                "ppr_blocked"} & set(ref_list_variants())
 
 
 @pytest.mark.parametrize("bad", [dict(backend="jax"), dict(description=""),

@@ -6,7 +6,9 @@
 Phases, one or more lines each; any failure exits non-zero:
 
 1. device   — the card's name, and its name and power limit from nvidia-smi;
-2. build    — nvcc builds the kernels from src/repro_torch/kernels/spmv/csrc;
+2. build    — nvcc builds the kernels from src/repro_torch/kernels/*/csrc,
+               one process per source, started together, and prints each
+               kernel's registers and spills;
 3. kernels  — on the full-size webStanford surrogate (n=281,903,
                m=2,312,497) at block 256, unweighted and weighted+biased,
                each kernel is held against its plain PyTorch version and
@@ -32,10 +34,31 @@ Phases, one or more lines each; any failure exits non-zero:
                ppr_barrier and ppr_nosync, each row within L1 1e-4 of a
                float64 scipy oracle; a uniform ppr_blocked row against the
                global blocked fixed point; two ppr_blocked solves repeat;
+               ppr_blocked at 65 rows, more than one launch takes, in
+               chunks of rows, each row against the oracle;
 8. engine   — PPREngine on the kernel backend, 8 slots, the 32 queries of
                make_query_stream(n, 32, seed=0) at threshold 1e-6: every
                top-k is the oracle's, q/s and latency; the torch backend
-               answers with the same top-k.
+               answers with the same top-k;
+9. flash    — flash_attention against its plain version over the
+               reference's test matrix (f32/bf16 x 3 head layouts x
+               causal / window 64 / full, s 256, dh 64), ragged and
+               sq != sk lengths, and qwen2-vl-2b's shape (b 2, hq 12,
+               hkv 2, s 4096, dh 128; causal and window 512), every entry
+               within its bound; times beside the plain version, SDPA
+               and the bound;
+10. prefill — qwen2-vl-2b at full width (1.54 B parameters, bf16, random
+               from a seeded generator): forward at b 2, s 4096 launches
+               the kernel once per layer (the main path); tokens/s over
+               three runs, the trace; f32 kernel route against the plain
+               route entry-wise; bf16 routes against the f32 forward;
+11. decode  — 128 teacher-forced f32 decode steps against the prefill's
+               logits, ms per step (no kernel on this path);
+12. serve   — repro_torch.launch.serve --preset full: every request
+               finishes (no kernel on this path); then the same requests
+               and loop in float32 on the decode phase's weights, every
+               token the engine picks held against forward's argmax over
+               the tokens its slot was fed.
 
 It then prints one JSON line naming every kernel, the nvidia-smi line, and
 last the JSON device record.  Without a CUDA device, or without the port's
@@ -68,10 +91,27 @@ FLOOR_ITERS = 150  # solves run past the threshold to find the float32 floor
 L1_BOUND = {"blocked_nosync_opt": 1e-3}
 L1_DEFAULT = 1e-4
 PPR_ROWS = 8  # seed rows of the batched solves and of gs_pass_multi
+PPR_WIDE_ROWS = 65  # one row more than one gs_pass_multi launch takes
 ENGINE_QUERIES = 32
 ENGINE_THRESHOLD = 1e-6
 TIE = 1e-7  # oracle values this close may swap places in a top-k
 TOPK_VALUE_TOL = 1e-5
+# flash attention and the LM path.  Peaks: H100 SXM dense bf16 tensor-core
+# rate and float32 rate outside the tensor cores, NVIDIA data sheet.
+BF16_TC_FLOPS = 989e12
+FP32_FLOPS = 67e12
+# flash_attention agrees with its plain version when every entry is within
+# FLASH_RTOL·(|ref| + the mean |ref| of its row) in float32; a bfloat16
+# output is held against the float32 plain result on the same inputs, with
+# one bf16 rounding (half an ulp: BF16_ROUNDING·|ref|) on top.
+FLASH_RTOL = 1e-5
+BF16_ROUNDING = 2.0**-8
+LM_BATCH, LM_SEQ = 2, 4096  # qwen2-vl-2b prefill
+LOGIT_RTOL = 1e-4  # f32 logits, kernel vs plain route, entry-wise
+BF16_ERR_RATIO = 1.25  # bf16 kernel route's mean error over the plain route's
+DECODE_STEPS = 128
+DECODE_TOL = 2e-3  # decode vs prefill, the reference test's atol = rtol
+SERVE_TIE = 1e-4  # top-2 logit gap under which either token is greedy's pick
 
 
 class SmokeFailure(RuntimeError):
@@ -365,13 +405,41 @@ def repeat_phase(g, dev):
               f"{res.min():.3e}; max rank {float(r.pr.max()):.3e}", flush=True)
 
 
+def traced(fn):
+    """Run ``fn`` once under the profiler; returns its result, the traced
+    wall in ms, the device-busy ms and the device rows by self time (None
+    when the trace holds no device time: not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not rows:
+        return out, wall_ms, None, None
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    return out, wall_ms, sum(e.self_device_time_total for e in rows) / 1e3, rows
+
+
+def print_trace(tag, wall_ms, busy_ms, rows, extra="", top=6):
+    if rows is None:
+        print(f"profile {tag}: no device time in the trace (not measured)")
+        return
+    print(f"profile {tag}: {extra}traced_wall_ms={wall_ms:.3f} device_busy_ms="
+          f"{busy_ms:.3f} busy_share={busy_ms / wall_ms:.3f}")
+    for e in rows[:top]:
+        print(f"profile {tag}:   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<5d} {e.key[:70]}")
+
+
 def profile_phase(g, dev):
     """One traced solve per kernel variant: device time by kernel and the
     device's busy share of the traced wall (the trace adds host overhead,
     so the untraced wall of the solve phase is the end-to-end number)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.solver import build_variant
     from repro_torch.serving import make_query_stream
 
@@ -381,24 +449,9 @@ def profile_phase(g, dev):
         v, bundle = build_variant(variant, g, device=dev)
         kw = dict(threshold=SOLVE_THRESHOLD, handle_dangling=True, **opts)
         v.run(bundle, **kw)  # warm-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            r = v.run(bundle, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-        if not rows:
-            print(f"profile {variant}: no device time in the trace (not measured)")
-            continue
-        print(f"profile {variant}: iterations={r.iterations} traced_wall_ms="
-              f"{wall * 1e3:.3f} device_busy_ms={busy_ms:.3f} "
-              f"busy_share={busy_ms / (wall * 1e3):.3f}")
-        rows.sort(key=lambda e: -e.self_device_time_total)
-        for e in rows[:6]:
-            print(f"profile {variant}:   {e.self_device_time_total / 1e3:9.3f} ms "
-                  f"x{e.count:<5d} {e.key[:70]}")
+        r, wall_ms, busy_ms, rows = traced(lambda: v.run(bundle, **kw))
+        print_trace(variant, wall_ms, busy_ms, rows,
+                    extra=f"iterations={r.iterations} ")
 
 
 def ppr_oracle(g, seed_sets, d=0.85, threshold=1e-12, max_iter=2000):
@@ -437,6 +490,7 @@ def ppr_phase(g, dev, oracle):
     from repro_torch.core.pagerank import l1_norm
     from repro_torch.core.solver import build_variant
     from repro_torch.kernels.spmv import launch_counts, reset_launch_counts
+    from repro_torch.kernels.spmv.kernel import gs_pass_multi_max_batch
     from repro_torch.serving import make_query_stream
 
     seeds = [q.seeds for q in make_query_stream(g.n, PPR_ROWS, seed=0)]
@@ -484,6 +538,29 @@ def ppr_phase(g, dev, oracle):
           f"global blocked ({glob.iterations} iterations): L1={lin:.3e} "
           f"(bound {L1_DEFAULT:g}); to the oracle {l1_norm(uniform.pr[0], oracle[()]):.3e}",
           flush=True)
+
+    wide = [q.seeds for q in make_query_stream(g.n, PPR_WIDE_ROWS, seed=0)]
+    per_launch = gs_pass_multi_max_batch(bundle.block, dev)
+    chunks = -(-PPR_WIDE_ROWS // per_launch)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    r = v.run(bundle, threshold=SOLVE_THRESHOLD, handle_dangling=True, seeds=wide)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_launch = launch_counts()["gs_pass_multi"]
+    check(chunks >= 2 and n_launch == chunks * r.iterations,
+          f"ppr_blocked b={PPR_WIDE_ROWS}: {n_launch} launches of gs_pass_multi for "
+          f"{r.iterations} passes, expected {chunks} a pass")
+    check(tuple(r.pr.shape) == (PPR_WIDE_ROWS, g.n) and bool(torch.isfinite(r.pr).all()),
+          f"ppr_blocked b={PPR_WIDE_ROWS}: ranks of shape {tuple(r.pr.shape)} or not finite")
+    l1 = [l1_norm(r.pr[i], oracle[_key(s)]) for i, s in enumerate(wide)]
+    check(max(l1) <= L1_DEFAULT,
+          f"ppr_blocked b={PPR_WIDE_ROWS}: row L1 {max(l1):.3e} to the oracle > {L1_DEFAULT:g}")
+    print(f"ppr ppr_blocked b={PPR_WIDE_ROWS}: {chunks} launches a pass (at most "
+          f"{per_launch} rows each), iterations={r.iterations} wall_s={wall:.4f} "
+          f"max_row_l1={max(l1):.3e} (bound {L1_DEFAULT:g}) gs_pass_multi "
+          f"launches={n_launch}", flush=True)
     return launches
 
 
@@ -540,6 +617,340 @@ def engine_phase(g, dev, oracle):
           flush=True)
 
 
+def attention_pairs(sq, sk, causal, window) -> int:
+    """Live (query, key) pairs of one head: the work this input needs."""
+    row = np.arange(sq)
+    hi = np.minimum(row, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(row - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound(q, k, causal, window) -> tuple[float, str, float, float]:
+    """Least time of one attention call: 4·dh flops per live pair over the
+    dtype's peak, against each operand read once and the output written
+    once over the memory rate.  Returns (ms, bound_by, flops, bytes)."""
+    b, hq, sq, dh = q.shape
+    _, hkv, sk, _ = k.shape
+    flops = 4.0 * dh * b * hq * attention_pairs(sq, sk, causal, window)
+    nbytes = q.element_size() * (2 * b * hq * sq * dh + 2 * b * hkv * sk * dh)
+    peak = BF16_TC_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    ops_ms, bytes_ms = flops / peak * 1e3, bound_ms(nbytes)
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes
+
+
+def flash_agreement(out, q, k, v, causal, window) -> tuple[float, float]:
+    """Max abs error of ``out`` against the plain version's float32 result
+    on the same inputs cast up, and the worst entry over its bound:
+    1e-5·(|ref| + mean|ref| of its row) in float32, plus 2⁻⁸·|ref| (one
+    rounding to bfloat16) for a bfloat16 ``out``.  A row is the dh values
+    of one (batch, head, query)."""
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    ref = attention_ref(q.float(), k.float(), v.float(), scale=q.shape[-1] ** -0.5,
+                        causal=causal, window=window)
+    err = (out.float() - ref).abs()
+    mag = ref.abs()
+    bound = FLASH_RTOL * (mag + mag.mean(dim=-1, keepdim=True))
+    if out.dtype == torch.bfloat16:
+        bound += BF16_ROUNDING * mag
+    return float(err.max()), float((err / bound).max())
+
+
+def _qkv(dev, dtype, b, hq, hkv, sq, sk, dh, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, hq, sq, dh), (b, hkv, sk, dh), (b, hkv, sk, dh))]
+
+
+def flash_kernel_phase(dev):
+    """The kernel against its plain version over the reference's test
+    matrix, ragged lengths and qwen2-vl-2b's own shape, each entry within
+    its bound; timings at qwen2-vl-2b's shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention, launch_counts, reset_launch_counts,
+    )
+
+    cases = [((2, hq, hkv, 256, 256, 64), dtype, causal, window)
+             for dtype in (torch.float32, torch.bfloat16)
+             for hq, hkv in ((4, 4), (4, 2), (8, 1))
+             for causal, window in ((True, None), (True, 64), (False, None))]
+    cases += [((2, 4, 2, sq, sk, 32), dtype, causal, window)
+              for dtype in (torch.float32, torch.bfloat16)
+              for sq, sk, causal, window in (
+                  (200, 200, True, None), (200, 200, True, 64), (200, 200, False, None),
+                  (96, 160, True, None), (160, 96, True, None), (96, 160, False, 48),
+                  (1, 37, False, None))]
+    worst = {"matrix": 0.0, "ragged": 0.0}
+    for i, (shape, dtype, causal, window) in enumerate(cases):
+        q, k, v = _qkv(dev, dtype, *shape, seed=i)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        _, ratio = flash_agreement(out, q, k, v, causal, window)
+        tag = "matrix" if shape[3] == 256 else "ragged"
+        check(ratio <= 1.0, f"flash_attention {tag} {shape} {dtype} causal={causal} "
+              f"window={window}: worst entry at {ratio:.3f}x its bound")
+        worst[tag] = max(worst[tag], ratio)
+    print(f"kernel flash_attention: {len(cases)} cases agree with the plain version "
+          f"(18 of the reference's test matrix, b 2, s 256, dh 64, worst entry "
+          f"{worst['matrix']:.3f}x its bound; {len(cases) - 18} ragged, dh 32, "
+          f"worst {worst['ragged']:.3f}x); bounds: f32 {FLASH_RTOL:g}*(|ref| + row "
+          f"mean|ref|), bf16 that + 2^-8*|ref| against the f32 plain result", flush=True)
+
+    b, hq, hkv, s, dh = LM_BATCH, 12, 2, LM_SEQ, 128
+    stats = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _qkv(dev, dtype, b, hq, hkv, s, s, dh, seed=7)
+        for causal, window in ((True, None), (True, 512)):
+            reset_launch_counts()
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err, ratio = flash_agreement(out, q, k, v, causal, window)
+            check(ratio <= 1.0, f"flash_attention {dtype} window={window} at "
+                  f"qwen2-vl-2b's shape: worst entry at {ratio:.3f}x its bound")
+            check(torch.equal(out, flash_attention(q, k, v, causal=causal, window=window)),
+                  "flash_attention is not deterministic")
+
+            def kern():
+                return flash_attention(q, k, v, causal=causal, window=window)
+
+            def plain():
+                return attention_ref(q, k, v, scale=dh**-0.5, causal=causal, window=window)
+
+            st = dict(max_abs_err=err, ratio=ratio, ms=time_ms(kern, 20),
+                      plain_ms=time_ms(plain, 3, warmup=1), library_ms=None)
+            launches = launch_counts()["flash_attention"]
+            # one library call for either mask: is_causal, or the causal
+            # sliding window as an explicit (sq, sk) boolean band
+            mask = None
+            if window is not None:
+                dist = (torch.arange(s, device=dev)[:, None]
+                        - torch.arange(s, device=dev)[None, :])
+                mask = (dist >= 0) & (dist < window)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, is_causal=mask is None, scale=dh**-0.5,
+                    enable_gqa=True)
+
+            lib_err = float((sdpa().float() - out.float()).abs().max())
+            st["library_ms"] = time_ms(sdpa, 20)
+            lib = (f"{st['library_ms']:.4f} (scaled_dot_product_attention"
+                   f"{'' if mask is None else ' with a band mask'}, max abs diff to "
+                   f"the kernel {lib_err:.3e})")
+            st["bound_ms"], st["bound_by"], flops, nbytes = flash_bound(q, k, causal, window)
+            print(f"kernel flash_attention {str(dtype)[6:]} causal={causal} window={window} "
+                  f"(b {b}, hq {hq}, hkv {hkv}, s {s}, dh {dh}): max_abs_err={err:.3e} "
+                  f"worst entry at {ratio:.3f}x its bound; ms={st['ms']:.4f} "
+                  f"plain_ms={st['plain_ms']:.4f} library_ms={lib} bound_ms="
+                  f"{st['bound_ms']:.4f} ({st['bound_by']}: {flops:.3e} flop, "
+                  f"{nbytes / 1e6:.1f} MB) achieved {flops / st['ms'] / 1e9:.1f} TFLOP/s; "
+                  f"launches={launches} (check, repeat and timing)", flush=True)
+            stats[(dtype, window)] = st
+    return stats
+
+
+def logits_worst(out, ref, rtol) -> float:
+    """Worst entry of |out − ref| over rtol·(|ref| + mean|ref| of its row),
+    computed in place (``out`` is consumed)."""
+    mag = ref.abs()
+    mag += mag.mean(dim=-1, keepdim=True)
+    return float(out.sub_(ref).abs_().div_(mag.mul_(rtol)).max())
+
+
+def lm_phase(dev):
+    """qwen2-vl-2b at full width from a seeded generator: bf16 prefill on
+    the kernel route (the main path of flash_attention), its trace, and
+    the plain route; float32 prefill, kernel against plain route; bf16
+    routes against the float32 forward; decode against prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import spmv
+    from repro_torch.models.model import DecoderLM, decode_step, forward, init_cache, init_params
+
+    cfg = get_config("qwen2-vl-2b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"lm: qwen2-vl-2b {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters in {cfg.dtype}, random init in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen, device=dev)
+    n_tok = LM_BATCH * LM_SEQ
+
+    forward(cfg, params, toks[:, :256])  # warm-up: load the kernel, plan the products
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    spmv.reset_launch_counts()
+    fa.reset_launch_counts()
+    walls = []
+    t0 = time.perf_counter()
+    bf16_kernel = forward(cfg, params, toks)  # the main path of the flash kernel
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    launches = fa.launch_counts()["flash_attention"]
+    check(launches == cfg.n_layers, f"prefill launched flash_attention {launches} "
+          f"times, expected {cfg.n_layers} (one per layer)")
+    check(all(n == 0 for n in spmv.launch_counts().values()), "prefill ran an spmv kernel")
+    check(tuple(bf16_kernel.shape) == (LM_BATCH, LM_SEQ, 152_064)
+          and bf16_kernel.dtype == torch.float32
+          and bool(torch.isfinite(bf16_kernel).all()), "prefill logits malformed")
+    peak = torch.cuda.max_memory_allocated(dev)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        forward(cfg, params, toks)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    plain_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        bf16_plain = forward(cfg, params, toks, use_flash_kernel=False)
+        torch.cuda.synchronize()
+        plain_walls.append(time.perf_counter() - t0)
+    best, best_plain = min(walls), min(plain_walls)
+    print(f"lm: bf16 prefill b={LM_BATCH} s={LM_SEQ}: kernel route "
+          f"{n_tok / best:.0f} tok/s (runs {', '.join(f'{w:.4f}' for w in walls)} s), "
+          f"plain route {n_tok / best_plain:.0f} tok/s (runs "
+          f"{', '.join(f'{w:.4f}' for w in plain_walls)} s); flash_attention "
+          f"launches per prefill {launches}; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    _, wall_ms, busy_ms, rows = traced(lambda: forward(cfg, params, toks))
+    print_trace("lm prefill (bf16, kernel route)", wall_ms, busy_ms, rows, top=8)
+
+    # float32 on the same weights, TF32 off
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = DecoderLM(cfg32, device=dev)
+    params32.load_state_dict(params.state_dict())
+    f32_plain = forward(cfg32, params32, toks, use_flash_kernel=False)
+    f32_kernel = forward(cfg32, params32, toks)
+    torch.cuda.synchronize()
+    diff = float((f32_kernel - f32_plain).abs().max())
+    worst = logits_worst(f32_kernel, f32_plain, LOGIT_RTOL)
+    del f32_kernel
+    check(worst <= 1.0, f"f32 prefill: kernel route off the plain route, worst "
+          f"entry {worst:.3f}x its bound")
+    print(f"lm: f32 prefill b={LM_BATCH} s={LM_SEQ}: kernel vs plain route max abs "
+          f"diff {diff:.3e}, worst entry {worst:.4f}x the bound {LOGIT_RTOL:g}*(|ref| "
+          f"+ row mean|ref|); max|logits| {float(f32_plain.abs().max()):.3f}", flush=True)
+
+    ref_arg = f32_plain.argmax(dim=-1)
+    err = {}
+    for route, logits in (("kernel", bf16_kernel), ("plain", bf16_plain)):
+        agree = float((logits.argmax(dim=-1) == ref_arg).float().mean())
+        err[route] = float(logits.sub_(f32_plain).abs_().mean())
+        print(f"lm: bf16 {route} route vs the f32 forward: argmax agreement "
+              f"{agree:.4f}, mean |diff| {err[route]:.4e}", flush=True)
+    del bf16_kernel, bf16_plain, f32_plain
+    check(err["kernel"] <= BF16_ERR_RATIO * err["plain"],
+          f"bf16 prefill: kernel route's mean error {err['kernel']:.4e} > "
+          f"{BF16_ERR_RATIO}x the plain route's {err['plain']:.4e}")
+
+    # decode: teacher-force DECODE_STEPS tokens through the ring cache in f32
+    dtoks = toks[:, :DECODE_STEPS].contiguous()
+    full = forward(cfg32, params32, dtoks)
+    cache = init_cache(cfg32, LM_BATCH, DECODE_STEPS, device=dev)
+    fa.reset_launch_counts()
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(DECODE_STEPS):
+        logits, cache = decode_step(cfg32, params32, dtoks[:, t:t + 1], cache)
+        outs.append(logits[:, 0])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
+    check(fa.launch_counts()["flash_attention"] == 0, "decode launched the flash kernel")
+    dec = torch.stack(outs, dim=1)
+    derr = (dec - full).abs()
+    dworst = float((derr / (DECODE_TOL + DECODE_TOL * full.abs())).max())
+    check(dworst <= 1.0, f"decode off prefill: worst entry {dworst:.3f}x the bound")
+    print(f"lm: f32 decode b={LM_BATCH}, {DECODE_STEPS} teacher-forced steps: "
+          f"{step_ms:.2f} ms/step; logits vs prefill max abs err {float(derr.max()):.3e}, "
+          f"worst entry {dworst:.4f}x the bound (atol = rtol = {DECODE_TOL:g}); "
+          f"no kernel launched", flush=True)
+    _, wall_ms, busy_ms, rows = traced(lambda: decode_step(cfg32, params32, dtoks[:, :1], cache))
+    launched = 0 if rows is None else sum(e.count for e in rows)
+    print_trace("lm decode step (f32)", wall_ms, busy_ms, rows,
+                extra=f"device ops={launched} ")
+    return launches, cfg32, params32
+
+
+def serve_phase(cfg32, params32):
+    """The serve launcher at its full preset: bf16, 4 slots, max-len 64,
+    6 requests, 16 new tokens; no kernel runs on this path.  Then the same
+    requests through the same loop in float32 on ``params32``: every token
+    the engine picks, at the end of a prompt or in a step, must be the
+    argmax of ``forward`` over every token its slot was fed so far (a
+    slot's cache keeps the prompts and pending tokens of every request it
+    served, as in the reference), or within SERVE_TIE of it."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models.model import forward
+    from repro_torch.serving import ServingEngine
+
+    fa.reset_launch_counts()
+    rep = serve.run(["--preset", "full"])
+    check(rep["finished"] == rep["requests"] == 6,
+          f"serve: {rep['finished']} of {rep['requests']} requests finished")
+    check(fa.launch_counts()["flash_attention"] == 0, "serving launched the flash kernel")
+    print(f"lm: serve --preset full (qwen2-vl-2b, bf16, 4 slots, max-len 64): "
+          f"{rep['finished']} of {rep['requests']} requests finished, "
+          f"{rep['tokens']} tokens in {rep['wall_s']:.3f}s = "
+          f"{rep['tokens'] / rep['wall_s']:.1f} tok/s; {rep['steps']} steps "
+          f"({rep['wall_s'] / rep['steps'] * 1e3:.2f} ms each), {rep['decode_calls']} "
+          f"decode calls with prefill ({rep['wall_s'] / rep['decode_calls'] * 1e3:.2f} "
+          f"ms each); no kernel launched", flush=True)
+
+    slots, max_len = 4, 64
+    eng = ServingEngine(cfg32, params32, batch_slots=slots, max_len=max_len, eos=-1)
+    # the (slots,) tokens of every decode call, rebuilt from what the loop
+    # sees: a submit feeds the prompt to its slot and every other slot's
+    # pending token once per prompt token; a step feeds every slot's
+    # pending token (an idle slot's included)
+    fed = []
+    pending = serve.draw_requests(rep["requests"], cfg32.vocab, 16)
+    picks = []  # (slot, decode call, token)
+    slot_of = {}
+    done = 0
+    while done < rep["requests"]:
+        while pending:
+            before = eng.tokens[:, 0].tolist()
+            if not eng.submit(pending[0]):
+                break
+            req = pending.pop(0)
+            slot = next(i for i, r in enumerate(eng.requests) if r is req)
+            slot_of[req.rid] = slot
+            fed += [before[:slot] + [int(t)] + before[slot + 1:] for t in req.prompt]
+            picks.append((slot, len(fed) - 1, int(eng.tokens[slot, 0])))
+        fed.append(eng.tokens[:, 0].tolist())
+        for rid, tok in eng.step():
+            picks.append((slot_of[rid], len(fed) - 1, tok))
+        done = rep["requests"] - len(pending) - sum(r is not None for r in eng.requests)
+    check(len(fed) <= max_len, f"serve f32: {len(fed)} decode calls wrap the "
+          f"{max_len}-slot ring; forward over a slot's history no longer applies")
+    ties = 0
+    for slot in range(slots):
+        hist = torch.tensor([[call[slot] for call in fed]], device=params32.embed.device)
+        logits = forward(cfg32, params32, hist)[0, :, :cfg32.vocab]
+        top = torch.topk(logits, 2, dim=-1)
+        for s, c, tok in picks:
+            if s != slot:
+                continue
+            best, second = top.indices[c].tolist()
+            gap = float(top.values[c, 0] - top.values[c, 1])
+            tie = gap < SERVE_TIE
+            check(tok == best or (tie and tok == second),
+                  f"serve f32: slot {slot} picked {tok} at decode call {c}; forward's "
+                  f"argmax over the slot's history is {best} (top-2 gap {gap:.3e})")
+            ties += tie
+    print(f"lm: serve f32 (same requests and loop, the decode phase's weights): "
+          f"{len(picks)} picks over {len(fed)} decode calls, each forward's argmax "
+          f"over its slot's history ({ties} top-2 gaps under {SERVE_TIE:g})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -552,22 +963,33 @@ def main() -> int:
     sys.path.insert(0, src)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    # float32 comparisons below hold float32 products, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}); "
           f"nvidia-smi: {smi}", flush=True)
 
-    from repro_torch.graphs import Graph, make_dataset
-    from repro_torch.kernels.spmv import build
+    from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.graphs import Graph, make_dataset
+    from repro_torch.kernels.flash_attention import build as flash_build
+    from repro_torch.kernels.spmv import build as spmv_build
+
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    path, log = build.build()
-    build.load()
-    print(f"build: {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    for line in log.splitlines():
-        if any(k in line for k in ("Function properties", "registers", "spill")):
-            print(f"build: {line.strip()}")
+    libs = (spmv_build, flash_build)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        built = [f.result() for f in [pool.submit(lib.build) for lib in libs]]
+    for lib in libs:
+        lib.load()
+    print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f}s", flush=True)
+    for path, log in built:
+        print(f"build: {os.path.relpath(path, ROOT)}")
+        for line in log.splitlines():
+            if any(k in line for k in ("Function properties", "registers", "spill")):
+                print(f"build: {line.strip()}")
 
     g = make_dataset("webStanford", scale_down=1)
     rng = np.random.default_rng(1)
@@ -583,10 +1005,16 @@ def main() -> int:
     profile_phase(g, dev)
     from repro_torch.serving import make_query_stream
 
-    queries = make_query_stream(g.n, ENGINE_QUERIES, seed=0)
+    # the engine's queries and the first rows of every batched solve are a
+    # prefix of this stream
+    queries = make_query_stream(g.n, max(ENGINE_QUERIES, PPR_WIDE_ROWS), seed=0)
     oracle = ppr_oracle(g, [q.seeds for q in queries] + [()])
     launches["gs_pass_multi"] = ppr_phase(g, dev, oracle)
     engine_phase(g, dev, oracle)
+    del g, gw, oracle
+    flash = flash_kernel_phase(dev)
+    launches["flash_attention"], cfg32, params32 = lm_phase(dev)
+    serve_phase(cfg32, params32)
 
     replaces = {"spmv_csr_acc": "src/repro/kernels/spmv/kernel.py:67",
                 "gs_pass": "src/repro/kernels/spmv/kernel.py:181",
@@ -602,6 +1030,15 @@ def main() -> int:
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": s["library_ms"],
         })
+    f = flash[(torch.bfloat16, None)]  # prefill's shape and dtype, causal
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
+        "launches": launches["flash_attention"], "max_abs_err": f["max_abs_err"],
+        "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+        "bound_by": f["bound_by"], "library_ms": f["library_ms"],
+    })
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,35 @@
+"""Architecture registry of the port.
+
+A copy of the reference's ``repro.configs`` cut to the architectures whose
+model code is ported: qwen2-vl-2b, the reference serve launcher's default.
+Later slices add an arch together with the model code it needs.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import EncoderConfig, MLAConfig, ModelConfig, MoEConfig, SSMConfig
+
+_ARCH_MODULES = {
+    "qwen2-vl-2b": "qwen2_vl_2b",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+    return mod.get_config()
+
+
+__all__ = [
+    "ARCH_IDS",
+    "ModelConfig",
+    "MoEConfig",
+    "SSMConfig",
+    "MLAConfig",
+    "EncoderConfig",
+    "get_config",
+]

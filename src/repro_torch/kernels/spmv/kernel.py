@@ -30,7 +30,8 @@ from repro_torch.kernels.spmv.ref import (
 MAX_BLOCK = 16384
 # gs_pass_multi stages b values per edge and a (block, b) accumulator in
 # shared memory; b is bounded here, and csrc/spmv.cu sizes the staging and
-# checks it against the card's per-CTA limit before each launch.
+# checks it against the card's per-CTA limit before each launch.  More
+# rows go through in chunks (gs_pass_multi_max_batch).
 MAX_BATCH = 64
 
 _LAUNCHES = {"spmv_csr_acc": 0, "gs_pass": 0, "gs_pass_multi": 0}
@@ -161,6 +162,36 @@ def gs_pass(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
     return out
 
 
+def _smem_per_block(lib, dev: torch.device) -> int:
+    """Shared memory a CTA may use on ``dev``, in bytes, as the card reports
+    (``cuda`` with no index is the current card)."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    have = lib.smem_per_block_optin(index)
+    if have < 0:
+        _raise_on(-have, "gs_pass_multi")
+    return have
+
+
+def gs_pass_multi_max_batch(block: int, device: torch.device) -> int:
+    """The most rows one :func:`gs_pass_multi` call takes at ``block``:
+    :data:`MAX_BATCH`, and on the card no more than the built library's
+    staging (``gs_pass_multi_smem_bytes`` in ``csrc/spmv.cu``) fits into a
+    CTA's shared memory.  Callers with more rows split them into chunks of
+    this size."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return MAX_BATCH
+    lib = build.load()
+    have = _smem_per_block(lib, device)
+    b = MAX_BATCH
+    while b > 0 and lib.gs_pass_multi_smem_bytes(block, b) > have:
+        b -= 1
+    if b == 0:
+        raise ValueError(f"block={block} leaves no room for one row in the "
+                         f"{have} B of shared memory a CTA may use on {device}")
+    return b
+
+
 def gs_pass_multi(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
                   tele: torch.Tensor, coef: torch.Tensor, d: float,
                   in_ptr: torch.Tensor, src: torch.Tensor,
@@ -205,9 +236,7 @@ def gs_pass_multi(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
         raise ValueError("state overflows the kernel's int32 vertex offsets")
     lib = build.load()
     need = lib.gs_pass_multi_smem_bytes(block, b)
-    have = lib.smem_per_block_optin(dev.index)
-    if have < 0:
-        _raise_on(-have, "gs_pass_multi")
+    have = _smem_per_block(lib, dev)
     if need > have:
         raise ValueError(f"block={block} with b={b} needs {need} B of shared "
                          f"memory, over the {have} B a CTA may use on {dev}")

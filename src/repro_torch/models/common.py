@@ -1,0 +1,71 @@
+"""Shared building blocks: init, RMSNorm, vocab padding.
+
+Weights keep the reference's layouts (``(in, out...)`` for dense weights,
+``(vocab, dim)`` for embeddings) so that ``convert.params_from_jax`` copies
+them as they are.  Every parameter is created with ``requires_grad=False``:
+the port runs inference only.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+_TRUNC = 2.0  # truncated-normal bounds, in standard deviations
+
+
+def param(shape, dtype, device) -> nn.Parameter:
+    """An uninitialized inference parameter."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+@torch.no_grad()
+def truncated_normal_(t: torch.Tensor, generator: torch.Generator,
+                      scale: float) -> torch.Tensor:
+    """Fill ``t`` with ``scale`` × a standard normal truncated to ±2, drawn
+    in float32 by inverse-CDF sampling (as ``jax.random.truncated_normal``
+    does; the two give different numbers from one seed) and then cast to
+    ``t``'s dtype."""
+    lo = math.erf(-_TRUNC / math.sqrt(2.0))
+    u = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    u.uniform_(lo, -lo, generator=generator)
+    z = u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-_TRUNC, _TRUNC)
+    return t.copy_(z.mul_(scale))
+
+
+def dense_init_(w: torch.Tensor, generator: torch.Generator, in_dim: int) -> torch.Tensor:
+    """Truncated-normal fan-in init of a dense weight ``(in_dim, *out)``."""
+    return truncated_normal_(w, generator, in_dim**-0.5)
+
+
+def embed_init_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """``(vocab, dim)`` embedding at scale ``dim**-0.5``, which keeps
+    tied-unembed logits at unit variance."""
+    return truncated_normal_(w, generator, w.shape[-1] ** -0.5)
+
+
+RMS_EPS = 1e-6
+VOCAB_MULTIPLE = 256
+
+
+class RMSNorm(nn.Module):
+    """The reference's ``rmsnorm``: float32 statistics, ``eps`` 1e-6, the
+    result cast back to the input's dtype."""
+
+    def __init__(self, dim: int, *, dtype, device):
+        super().__init__()
+        self.scale = param((dim,), dtype, device)
+        nn.init.ones_(self.scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        x = x.float()
+        x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + RMS_EPS)
+        return (x * self.scale.float()).to(dt)
+
+
+def pad_vocab(vocab: int) -> int:
+    """Pad vocab to a multiple of 256 (151,936 → 152,064)."""
+    return -(-vocab // VOCAB_MULTIPLE) * VOCAB_MULTIPLE

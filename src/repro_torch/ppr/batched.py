@@ -52,7 +52,7 @@ from repro_torch.core.solver import (
     solve,
 )
 from repro_torch.graphs.csr import Graph
-from repro_torch.kernels.spmv.kernel import gs_pass_multi
+from repro_torch.kernels.spmv.kernel import gs_pass_multi, gs_pass_multi_max_batch
 from repro_torch.kernels.spmv.ops import BlockedGraph
 
 __all__ = [
@@ -333,18 +333,31 @@ def make_batched_blocked_sweep(bg: BlockedGraph, *, d: float,
     and the kernel multiplies it into ``tele`` in its epilogue.
     ``frozen_rows`` is a bool ``(b,)`` device mask of rows held through
     the pass.  ``tele`` must already carry any vertex bias
-    (:func:`bias_scaled`)."""
+    (:func:`bias_scaled`).
+
+    Any number of rows: a batch wider than one launch takes
+    (:func:`gs_pass_multi_max_batch`) goes through in chunks of rows, each
+    launched on every pass.  Rows are independent within a pass, so the
+    chunks change no row and no pass count."""
     dangling = bg.dangling.unsqueeze(BATCH_AXIS)
+    per_launch = gs_pass_multi_max_batch(bg.block, bg.vmask.device)
 
     def sweep(pr, tele, frozen_rows):
+        b = pr.shape[BATCH_AXIS]
         if handle_dangling:
             dmass = torch.sum(pr * dangling, dim=ROW_AXES)  # (b,)
         else:
-            dmass = torch.zeros(pr.shape[BATCH_AXIS], dtype=pr.dtype,
-                                device=pr.device)
+            dmass = torch.zeros(b, dtype=pr.dtype, device=pr.device)
         coef = (1.0 - d) + d * dmass
-        return gs_pass_multi(pr, bg.inv_out, bg.vmask, tele, coef, d,
-                             bg.in_ptr, bg.src, bg.weights, frozen_rows)
+        parts = []
+        for lo in range(0, b, per_launch) or [0]:  # b = 0 meets the kernel's check
+            rows = slice(lo, lo + per_launch)
+            # a chunk that is the whole batch is a view of it: no copy
+            parts.append(gs_pass_multi(
+                pr[..., rows].contiguous(), bg.inv_out, bg.vmask,
+                tele[..., rows].contiguous(), coef[rows], d, bg.in_ptr, bg.src,
+                bg.weights, frozen_rows[rows]))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=BATCH_AXIS)
 
     return sweep
 

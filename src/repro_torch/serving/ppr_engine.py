@@ -43,6 +43,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph
 from repro_torch.kernels.spmv.ops import BlockedGraph
 from repro_torch.ppr.batched import (
+    BATCH_AXIS,
     ROW_AXES,
     bias_scaled,
     make_batched_blocked_sweep,
@@ -145,6 +146,8 @@ class _TorchBackend:
     def step(self, frozen: np.ndarray) -> np.ndarray:
         fz = torch.as_tensor(frozen, device=self.state.device)[:, None]
         pr = self.state
+        # no pass leaves every row unconverged, as the reference's loop does
+        err = torch.full((pr.shape[0],), float("inf"), device=pr.device)
         for _ in range(self.iters_per_step):
             new = torch.where(fz, pr, self.sweep(pr, self.tele))
             err = torch.amax(torch.abs(new - pr), dim=1)
@@ -180,6 +183,7 @@ class _KernelBackend:
     def step(self, frozen: np.ndarray) -> np.ndarray:
         fz = torch.as_tensor(frozen, device=self.state.device)
         pr = self.state
+        err = torch.full((pr.shape[BATCH_AXIS],), float("inf"), device=pr.device)
         for _ in range(self.iters_per_step):
             new = self.sweep(pr, self.tele, fz)
             err = torch.amax(torch.abs(new - pr), dim=ROW_AXES)

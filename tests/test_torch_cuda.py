@@ -10,18 +10,31 @@ kernels sum each row in another order than the plain versions (a strided
 warp sum against ``segment_reduce``), so results agree to float32 rounding of
 the row sums: every entry within 1e-5 × (its |ref| + the mean |ref| of its
 rank row).  The mean term covers entries near 0; a bound on max|ref| alone
-would let a wrong entry far from a PPR seed pass.
+would let a wrong entry far from a PPR seed pass.  The flash-attention and
+LM tests at the end state their own bounds.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.pagerank import l1_norm, pagerank_numpy
 from repro_torch.core.solver import solve_variant
 from repro_torch.ppr import ppr_numpy, teleport_from_seeds
 from repro_torch.ppr.batched import bias_scaled, blocked_rows
 from repro_torch.serving import PPREngine, make_query_stream
 from repro_torch.graphs import Graph, make_dataset, rmat_graph
+from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS,
+    attention_ref,
+    flash_attention,
+)
+from repro_torch.kernels.flash_attention import launch_counts as flash_counts
+from repro_torch.kernels.flash_attention import reset_launch_counts as reset_flash_counts
+from repro_torch.launch import serve
+from repro_torch.models.model import decode_step, forward, init_cache, init_params
 from repro_torch.kernels.spmv import (
     BlockedGraph,
     gs_pass,
@@ -229,6 +242,30 @@ def test_ppr_blocked_on_card_matches_oracle_and_repeats(cuda, handle_dangling):
     assert a.iterations == b.iterations and torch.equal(a.pr, b.pr)
 
 
+@pytest.mark.parametrize("block", [64, 256])
+def test_ppr_blocked_on_card_takes_more_rows_than_one_launch(cuda, block):
+    """65 rows: more than one launch takes (MAX_BATCH, or fewer where the
+    rows do not fit in shared memory), so every pass launches the kernel
+    once per chunk of rows, and every row reaches the float64 oracle."""
+    from repro_torch.kernels.spmv.kernel import MAX_BATCH, gs_pass_multi_max_batch
+
+    g = rmat_graph(10, avg_degree=8, seed=4)
+    rng = np.random.default_rng(65)
+    seeds = [tuple(int(s) for s in rng.choice(g.n, rng.integers(1, 4), replace=False))
+             for _ in range(MAX_BATCH + 1)]
+    per_launch = gs_pass_multi_max_batch(block, cuda)
+    launches_per_pass = -(-len(seeds) // per_launch)
+    assert 1 <= per_launch <= MAX_BATCH and launches_per_pass >= 2
+    oracle, _ = ppr_numpy(g, teleport_from_seeds(seeds, g.n), threshold=1e-12,
+                          handle_dangling=True)
+    reset_launch_counts()
+    r = solve_variant("ppr_blocked", g, threshold=1e-9, seeds=seeds,
+                      handle_dangling=True, block=block, device=cuda)
+    assert launch_counts()["gs_pass_multi"] == launches_per_pass * r.iterations > 0
+    l1 = np.abs(r.pr.double().cpu().numpy() - oracle).sum(axis=1)
+    assert l1.shape == (len(seeds),) and l1.max() < 1e-5
+
+
 def test_engine_kernel_backend_on_card_matches_torch_backend(cuda):
     g = make_dataset("webStanford", scale_down=64)
     qs = make_query_stream(g.n, 16, seed=0)
@@ -247,3 +284,129 @@ def test_engine_kernel_backend_on_card_matches_torch_backend(cuda):
         assert (ref[r.indices] >= kth - 1e-6).all()
         assert np.abs(r.values - ref[r.indices]).max() < 1e-5
         assert np.abs(r.values - by_qid[r.qid].values).max() < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the dense LM path (qwen2-vl-2b reduced)
+# ---------------------------------------------------------------------------
+#
+# Bounds, entry-wise, with row = the dh values of one (b, head, query):
+# float32: |out − ref| ≤ 1e-5·(|ref| + mean|ref| of its row), the kernel
+# summing in another order than the plain version; bfloat16: held against
+# the plain version's float32 result on the same bf16 inputs cast up,
+# |out − ref32| ≤ 2⁻⁸·|ref32| + 1e-5·(|ref32| + mean|ref32|) — one
+# rounding to bf16 (half an ulp, 2⁻⁸ relative) plus the float32 term.
+
+def _flash_worst(out, q, k, v, causal, window):
+    """The largest entry error of ``out`` over its bound (≤ 1 passes)."""
+    ref = attention_ref(q.float(), k.float(), v.float(), scale=q.shape[-1] ** -0.5,
+                        causal=causal, window=window)
+    mag = ref.abs()
+    bound = 1e-5 * (mag + mag.mean(dim=-1, keepdim=True))
+    if q.dtype == torch.bfloat16:
+        bound = bound + 2.0**-8 * mag
+    return float(((out.float() - ref).abs() / bound).max())
+
+
+def _qkv(cuda, dtype, b, hq, hkv, sq, sk, dh, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=cuda).to(dtype)
+            for shape in ((b, hq, sq, dh), (b, hkv, sk, dh), (b, hkv, sk, dh))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64), (False, None)])
+def test_flash_attention_matches_plain(cuda, dtype, hq, hkv, causal, window):
+    q, k, v = _qkv(cuda, dtype, 2, hq, hkv, 256, 256, 64, seed=hq + hkv)
+    reset_flash_counts()
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_counts()["flash_attention"] == 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _flash_worst(out, q, k, v, causal, window) <= 1.0
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (200, 200, True, None), (200, 200, True, 64), (200, 200, False, None),
+    (96, 160, True, None), (160, 96, True, None), (96, 160, False, 48),
+    (1, 37, False, None), (1, 1, True, None), (65, 300, True, 7),
+])
+def test_flash_attention_ragged_matches_plain(cuda, dtype, sq, sk, causal, window):
+    q, k, v = _qkv(cuda, dtype, 2, 4, 2, sq, sk, 32, seed=sq * sk)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _flash_worst(out, q, k, v, causal, window) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_flash_attention_head_dims(cuda, dtype, dh):
+    q, k, v = _qkv(cuda, dtype, 1, 12, 2, 192, 192, dh, seed=dh)
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _flash_worst(out, q, k, v, True, None) <= 1.0
+
+
+def test_flash_attention_rejects_other_head_dims(cuda):
+    q, k, v = _qkv(cuda, torch.float32, 1, 2, 2, 16, 16, 80, seed=0)
+    reset_flash_counts()
+    with pytest.raises(ValueError, match=r"supported: \(32, 64, 128\)"):
+        flash_attention(q, k, v)
+    assert flash_counts()["flash_attention"] == 0
+
+
+def test_flash_attention_row_without_live_key_is_zero(cuda):
+    """As the TPU kernel: l stays 0 and acc / max(l, 1e-30) is 0 (the plain
+    versions give the mean of v there)."""
+    q, k, v = _qkv(cuda, torch.float32, 1, 2, 2, 10, 4, 32, seed=1)
+    out = flash_attention(q, k, v, causal=False, window=6)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, :, 9], torch.zeros_like(out[:, :, 9]))
+    assert _flash_worst(out[:, :, :9].contiguous(), q[:, :, :9].contiguous(), k, v,
+                        False, 6) <= 1.0
+
+
+def _lm(cuda, dtype="float32"):
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b").reduced(), dtype=dtype)
+    return cfg, init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+
+
+@pytest.mark.parametrize("s", [64, 200])
+def test_forward_on_card_runs_the_kernel_once_per_layer(cuda, s):
+    cfg, params = _lm(cuda)
+    toks = torch.randint(0, cfg.vocab, (2, s), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(s))
+    reset_flash_counts()
+    out = forward(cfg, params, toks)
+    assert flash_counts()["flash_attention"] == cfg.n_layers
+    ref = forward(cfg, params, toks, use_flash_kernel=False)
+    torch.cuda.synchronize()
+    assert flash_counts()["flash_attention"] == cfg.n_layers
+    mag = ref.abs()
+    # float32 logits: 1e-4 × (|ref| + mean|ref| of the token's row)
+    assert float(((out - ref).abs() / (mag + mag.mean(-1, keepdim=True))).max()) <= 1e-4
+
+
+def test_decode_matches_forward_on_card(cuda):
+    cfg, params = _lm(cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 16), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+    full = forward(cfg, params, toks)
+    cache = init_cache(cfg, 2, 16, device=cuda)
+    reset_flash_counts()
+    outs = []
+    for t in range(16):
+        logits, cache = decode_step(cfg, params, toks[:, t:t + 1], cache)
+        outs.append(logits[:, 0])
+    assert flash_counts()["flash_attention"] == 0  # decode runs no kernel
+    torch.testing.assert_close(torch.stack(outs, dim=1), full, rtol=2e-3, atol=2e-3)
+
+
+def test_serve_on_card_finishes_every_request(cuda):
+    reset_flash_counts()
+    rep = serve.run(["--requests", "3", "--max-new", "4"])
+    assert rep["finished"] == 3 and rep["tokens"] == 12
+    assert flash_counts()["flash_attention"] == 0

@@ -60,7 +60,7 @@ from repro_torch.kernels.spmv import (
     gs_pass_ref,
     launch_counts,
 )
-from repro_torch.kernels.spmv.kernel import MAX_BATCH
+from repro_torch.kernels.spmv.kernel import MAX_BATCH, gs_pass_multi_max_batch
 from repro_torch.launch import pagerank_run
 from repro_torch.ppr import batched, topk
 from repro_torch.ppr.batched import (
@@ -469,6 +469,43 @@ def test_ppr_blocked_row_freeze_exits_rows_independently():
     r = ppr_blocked(bg, batched.teleport_from_seeds(seeds, g.n), threshold=1e-9)
     for i in range(2):
         assert np.abs(r.pr[i].double().numpy() - oracle[i]).sum() < 1e-5
+
+
+@pytest.mark.parametrize("b", [MAX_BATCH + 1, 2 * MAX_BATCH + 2])  # 65, 130
+def test_ppr_blocked_takes_more_rows_than_one_launch(b):
+    """A batch wider than one gs_pass_multi launch goes through in chunks
+    of rows.  It matches the reference's ppr_nosync with one partition per
+    dst block (the same passes), each row is what the first chunk alone gives it bit for
+    bit (rows freeze one by one), and every row reaches the float64
+    oracle within L1 1e-5 at threshold 1e-9."""
+    g, bg = _blocked("rmat")
+    assert gs_pass_multi_max_batch(bg.block, CPU) == MAX_BATCH < b
+    rng = np.random.default_rng(b)
+    seeds = [tuple(int(s) for s in rng.choice(g.n, rng.integers(1, 4), replace=False))
+             for _ in range(b)]
+    ref_pg = RefPartitionedGraph.from_graph(g, p=bg.n_blocks)
+    ref = ref_batched.ppr_nosync(
+        ref_pg, ref_batched.teleport_from_seeds(seeds, g.n, n_pad=ref_pg.n_pad),
+        threshold=PPR_PARITY_THRESH, thread_level=False, handle_dangling=True)
+    tele = batched.teleport_from_seeds(seeds, g.n)
+    before = launch_counts()
+    got = ppr_blocked(bg, tele, threshold=PPR_PARITY_THRESH, handle_dangling=True)
+    assert launch_counts() == before  # the CPU runs the plain version
+    # the same passes; the reference counts p sweeps a pass
+    assert got.iterations == int(ref.iterations) and got.sweeps == got.iterations
+    # each package stops a row within thr·d/(1-d) of its fixed point, so the
+    # two lie within twice that (3.1e-6 apart at b = 4, with no chunks)
+    assert np.abs(got.pr.numpy() - np.asarray(ref.pr)).max() <= (
+        2 * PPR_PARITY_THRESH * D / (1 - D))
+    head = ppr_blocked(bg, tele[:MAX_BATCH], threshold=PPR_PARITY_THRESH,
+                       handle_dangling=True)
+    assert torch.equal(got.pr[:MAX_BATCH], head.pr)
+
+    oracle, _ = batched.ppr_numpy(port(g), tele, threshold=1e-12, handle_dangling=True)
+    r = solve_variant("ppr_blocked", port(g), threshold=1e-9, seeds=seeds,
+                      handle_dangling=True, block=bg.block, device=CPU)
+    l1 = np.abs(r.pr.double().numpy() - oracle).sum(axis=1)
+    assert l1.shape == (b,) and l1.max() < 1e-5
 
 
 def test_ppr_blocked_empty_graph():

@@ -157,6 +157,20 @@ def test_engine_per_slot_early_exit(backend):
 
 
 @pytest.mark.parametrize("backend", sorted(BACKENDS))
+def test_engine_step_with_no_pass_keeps_the_query(backend):
+    """``iters_per_step=0`` runs no pass: every row's error stays ``inf``,
+    so ``step`` answers nothing and the query stays active, as in the
+    reference (its loop returns the initial all-``inf`` carry)."""
+    g = rmat_graph(6, avg_degree=4, seed=0)
+    eng = engine(g, backend, slots=2, iters_per_step=0)
+    ref = RefPPREngine(g, slots=2, iters_per_step=0, backend="jax")
+    for e, query in ((eng, PPRQuery), (ref, RefPPRQuery)):
+        assert e.submit(query(qid=0, seeds=(3,), top_k=3))
+        assert e.step() == [] and e.step() == []
+        assert e.active_count == 1
+
+
+@pytest.mark.parametrize("backend", sorted(BACKENDS))
 def test_engine_reset_clears_warm_cache(backend):
     g = rmat_graph(7, avg_degree=5, seed=1)
     eng = engine(g, backend, slots=2, threshold=1e-6)

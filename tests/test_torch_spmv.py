@@ -26,6 +26,7 @@ from repro.graphs import rmat_graph as ref_rmat_graph
 from repro.graphs.csr import Graph as RefGraph
 from repro.kernels.spmv import spmv_blocked
 from repro_torch.graphs import graph_from_arrays
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.spmv import (
     BlockedGraph,
     build,
@@ -217,27 +218,28 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_build_targets_hopper_and_keys_on_source():
-    path = build.library_path()
-    assert path.parent == build.BUILD_DIR and path.suffix == ".so"
-    flags = " ".join(build.NVCC_FLAGS)
+    path = nvcc.library_path(build.SOURCE)
+    assert path.parent == nvcc.BUILD_DIR and path.suffix == ".so"
+    assert path.name.startswith("spmv_")
+    flags = " ".join(nvcc.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     assert build.SOURCE.is_file() and build.SOURCE.suffix == ".cu"
 
 
 def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
-    monkeypatch.setattr(build.os.path, "isfile", lambda p: False)
-    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(nvcc.os.path, "isfile", lambda p: False)
+    monkeypatch.setattr(nvcc.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc"):
-        build.nvcc_path()
+        nvcc.nvcc_path()
 
 
 def test_build_surfaces_compiler_errors(monkeypatch, tmp_path):
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(build, "nvcc_command", lambda out: ["nvcc"])
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(nvcc, "nvcc_command", lambda source, out: ["nvcc"])
     monkeypatch.setattr(
-        build.subprocess, "run",
-        lambda cmd, **kw: build.subprocess.CompletedProcess(cmd, 1, "", "error"))
+        nvcc.subprocess, "run",
+        lambda cmd, **kw: nvcc.subprocess.CompletedProcess(cmd, 1, "", "error"))
     with pytest.raises(RuntimeError, match="nvcc failed"):
         build.build()
     assert list(tmp_path.iterdir()) == []  # no half-built library left behind

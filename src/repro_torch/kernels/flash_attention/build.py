@@ -18,13 +18,30 @@ def build() -> tuple[pathlib.Path, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
+def load(path: pathlib.Path | None = None) -> ctypes.CDLL:
     """The built library with its C signature declared (built on first
-    call; one load per process)."""
-    path, _ = build()
+    call; one load per process).  ``path`` loads another library built
+    from a copy of the source with the same C interface instead."""
+    if path is None:
+        path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                         ctypes.c_float, i, i, p]
     lib.flash_attention_fwd.restype = i
+    lib.flash_attention_info.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.flash_attention_info.restype = i
     return lib
+
+
+def kernel_info(dh: int, bf16: bool, lib: ctypes.CDLL | None = None) -> dict[str, int]:
+    """Registers, spill bytes a thread, dynamic shared memory a CTA,
+    resident CTAs an SM and the bf16 terms P is summed as (0 for the
+    float32 kernel) of the kernel launched for ``dh`` and the dtype, as the
+    built library (``lib``, else :func:`load`'s) reports them."""
+    out = (ctypes.c_int * 5)()
+    err = (lib or load()).flash_attention_info(dh, int(bf16), out)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_info failed with cudaError {err}")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "ctas_per_sm", "p_terms"),
+                    out))

@@ -74,28 +74,43 @@ def flash_attention_kernel(
     (src/repro/kernels/flash_attention/kernel.py).  On a CUDA tensor it
     launches the kernel for any ``sq, sk`` (tails are masked in the
     kernel, so there is no block-divisibility fallback) and raises
-    ``ValueError`` for a head dim outside :data:`HEAD_DIMS`.  Bound:
-    operations, ``4·dh`` flops per live (q, k) pair; see the design note
-    in ``csrc/flash_attention.cu``."""
+    ``ValueError`` for a head dim outside :data:`HEAD_DIMS`.  The dtype
+    picks the kernel inside the one entry point: bfloat16 runs on the
+    tensor cores (``wgmma`` on TMA-fed tiles, P summed as three exact
+    bf16 terms), float32 on the CUDA cores; a failed build or launch
+    raises.  Bound: operations, ``4·dh`` flops per live (q, k) pair; see
+    the design note in ``csrc/flash_attention.cu``."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, scale=scale, causal=causal, window=window)
-    b, hq, sq, dh = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    dh = q.shape[-1]
     if dh not in HEAD_DIMS:
         raise ValueError(f"head_dim {dh} is not supported by the CUDA flash "
                          f"kernel; supported: {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bfloat16 q, k, v must start on 16-byte boundaries "
+                         "(the kernel's TMA tensor maps)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    err = build.load().flash_attention_fwd(
+    launch(build.load(), q, k, v, out, scale=scale, causal=causal, window=window)
+    _LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def launch(lib, q, k, v, out, *, scale: float, causal: bool, window: int | None) -> None:
+    """One call of ``lib``'s ``flash_attention_fwd`` (a library of
+    :func:`build.load`) on checked CUDA operands, writing ``out``; raises if
+    the launch fails.  Counts nothing: :func:`flash_attention_kernel` is
+    the port's launch."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
         sq, sk, dh, int(q.dtype == torch.bfloat16), float(scale), int(causal),
         -1 if window is None else int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed with cudaError {err}")
-    _LAUNCHES["flash_attention"] += 1
-    return out

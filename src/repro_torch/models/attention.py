@@ -45,7 +45,8 @@ class GQAttention(nn.Module):
         dense_init_(self.wo, generator, self.wo.shape[0])
 
 
-def gqa_init(cfg: ModelConfig, dtype, *, generator: torch.Generator, device=None) -> GQAttention:
+def gqa_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
+             device: torch.device | str) -> GQAttention:
     m = GQAttention(cfg, dtype=dtype, device=device)
     m.reset_parameters(generator)
     return m

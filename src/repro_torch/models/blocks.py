@@ -33,7 +33,7 @@ class DecoderBlock(nn.Module):
 
 
 def decoder_block_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
-                       device=None) -> DecoderBlock:
+                       device: torch.device | str) -> DecoderBlock:
     blk = DecoderBlock(cfg, dtype=dtype, device=device)
     blk.reset_parameters(generator)
     return blk

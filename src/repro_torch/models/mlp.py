@@ -29,7 +29,8 @@ class MLP(nn.Module):
         dense_init_(self.wo, generator, self.cfg.d_ff)
 
 
-def mlp_init(cfg: ModelConfig, dtype, *, generator: torch.Generator, device=None) -> MLP:
+def mlp_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
+             device: torch.device | str) -> MLP:
     m = MLP(cfg, dtype=dtype, device=device)
     m.reset_parameters(generator)
     return m

@@ -31,6 +31,7 @@ from repro_torch.kernels.flash_attention import (
     attention_ref,
     flash_attention,
 )
+from repro_torch.kernels.flash_attention import build as flash_build
 from repro_torch.kernels.flash_attention import launch_counts as flash_counts
 from repro_torch.kernels.flash_attention import reset_launch_counts as reset_flash_counts
 from repro_torch.launch import serve
@@ -297,10 +298,13 @@ def test_engine_kernel_backend_on_card_matches_torch_backend(cuda):
 # |out − ref32| ≤ 2⁻⁸·|ref32| + 1e-5·(|ref32| + mean|ref32|) — one
 # rounding to bf16 (half an ulp, 2⁻⁸ relative) plus the float32 term.
 
-def _flash_worst(out, q, k, v, causal, window):
-    """The largest entry error of ``out`` over its bound (≤ 1 passes)."""
+def _flash_worst(out, q, k, v, causal, window, rows=None):
+    """The largest entry error of ``out`` over its bound (≤ 1 passes), over
+    the query ``rows`` (a boolean mask) or all."""
     ref = attention_ref(q.float(), k.float(), v.float(), scale=q.shape[-1] ** -0.5,
                         causal=causal, window=window)
+    if rows is not None:
+        out, ref = out[:, :, rows], ref[:, :, rows]
     mag = ref.abs()
     bound = 1e-5 * (mag + mag.mean(dim=-1, keepdim=True))
     if q.dtype == torch.bfloat16:
@@ -348,6 +352,56 @@ def test_flash_attention_head_dims(cuda, dtype, dh):
     out = flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert _flash_worst(out, q, k, v, True, None) <= 1.0
+
+
+def _live_rows(sq, sk, causal, window, device):
+    """Query rows that see at least one key (qpos − kpos < window, and
+    kpos ≤ qpos when causal; positions from 0)."""
+    qpos = torch.arange(sq, device=device)
+    last = torch.clamp(qpos, max=sk - 1) if causal else torch.full_like(qpos, sk - 1)
+    first = torch.clamp(qpos - window + 1, min=0) if window else torch.zeros_like(qpos)
+    return first <= last
+
+
+# the bf16 tensor-core kernel: head dims, GQA groups, a q tail that is not
+# a multiple of its 64-row tile, k shorter than its 64-key tile, one query;
+# rows without a live key (a window with sq > sk) are 0, as in the TPU
+# kernel (the plain version gives the mean of v there), and the other rows
+# are held against the plain version
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (4, 2), (12, 2)])
+@pytest.mark.parametrize("sq,sk", [(130, 200), (60, 40), (1, 37)])
+def test_bf16_tensor_core_kernel_matches_plain(cuda, dh, hq, hkv, sq, sk):
+    q, k, v = _qkv(cuda, torch.bfloat16, 2, hq, hkv, sq, sk, dh, seed=dh + hq + sq)
+    for causal, window in ((True, None), (True, 16), (False, None), (False, 24)):
+        reset_flash_counts()
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert flash_counts()["flash_attention"] == 1
+        assert out.dtype == torch.bfloat16 and out.shape == q.shape
+        live = _live_rows(sq, sk, causal, window, cuda)
+        assert torch.equal(out[:, :, ~live], torch.zeros_like(out[:, :, ~live]))
+        assert _flash_worst(out, q, k, v, causal, window, rows=live) <= 1.0
+        assert torch.equal(out, flash_attention(q, k, v, causal=causal, window=window))
+
+
+def test_bf16_kernel_reports_its_p_terms(cuda):
+    """The built library sums P as the 3 bf16 terms that the CPU emulation
+    in tests/test_torch_flash_attention.py holds to the bound; the float32
+    kernel has none."""
+    for dh in HEAD_DIMS:
+        assert flash_build.kernel_info(dh, True)["p_terms"] == 3
+        assert flash_build.kernel_info(dh, False)["p_terms"] == 0
+
+
+def test_bf16_kernel_needs_16_byte_aligned_operands(cuda):
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, 2, 2, 16, 16, 32, seed=0)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    reset_flash_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(shifted, k, v)
+    assert flash_counts()["flash_attention"] == 0
 
 
 def test_flash_attention_rejects_other_head_dims(cuda):

@@ -11,7 +11,16 @@ neighbouring bf16 numbers (one ulp is 2⁻⁷ relative).  Ragged and
 ``sq ≠ sk`` shapes, which the TPU kernel does not take, are held against
 the reference's ``attention_ref`` at the same tolerances.  Inputs are
 drawn with numpy from fixed seeds and given to both packages.
+
+The bf16 CUDA kernel sums P·V on the tensor cores with P split into
+bf16 terms.  ``_emulate`` repeats its arithmetic on the CPU (bf16 q, k,
+v; S from exact products with float32 sums; P split into ``n`` bf16
+terms; tile-wise ``acc·alpha + pv``) and holds it to ``chip_smoke.py``'s
+bound on the cases above and one qwen2-vl-2b-width head: the kernel's
+term count keeps it, one term breaks it.
 """
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -155,3 +164,121 @@ def test_both_sources_build_through_one_helper():
     assert flash.name.startswith("flash_attention_") and spmv.name.startswith("spmv_")
     assert build.SOURCE.is_file() and build.SOURCE.suffix == ".cu"
     assert build.SOURCE.parent.name == "csrc"
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's split of P, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's constants
+FLASH_RTOL, BF16_ROUNDING, BF16_DIFFER_SHARE = 1e-5, 2.0**-8, 1e-3
+# tc::P_TERMS of csrc/flash_attention.cu (the card test
+# test_bf16_kernel_reports_its_p_terms reads it from the built library)
+KERNEL_P_TERMS = 3
+MATRIX = [((2, hq, hkv, 256, 256, 64), hq * 10 + hkv, causal, window)
+          for (hq, hkv), (causal, window) in itertools.product(
+              ((4, 4), (4, 2), (8, 1)), ((True, None), (True, 64), (False, None)))]
+RAGGED = [((2, 4, 2, sq, sk, 32), sq + sk, causal, window)
+          for sq, sk, causal, window in ((200, 200, True, None), (200, 200, True, 64),
+                                         (200, 200, False, None), (96, 160, True, None),
+                                         (160, 96, True, None), (96, 160, False, 48),
+                                         (1, 37, False, None))]
+QWEN_HEAD = [((1, 1, 1, 1024, 1024, 128), 1024, True, None)]  # one (b, h), dh 128
+
+
+def _emulate(q, k, v, *, causal, window, terms, block_k=64):
+    """The bf16 kernel's arithmetic on bf16 ``q, k, v``, in float32 before
+    the output's rounding: per 64-key tile, S = q·kᵀ (bf16 products are
+    exact in float32) times the scale, masked to -1e30; the online max,
+    p = exp(s − m) on live keys, alpha = exp(m_prev − m); P split into
+    ``terms`` bf16 terms, each the rounding of what the earlier ones leave;
+    pv = Σ term·v in float32, smallest term first; acc = acc·alpha + pv;
+    out = acc / max(l, 1e-30)."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    k = k.float().repeat_interleave(hq // hkv, dim=1)
+    v = v.float().repeat_interleave(hq // hkv, dim=1)
+    q = q.float()
+    acc = torch.zeros(b, hq, sq, dh)
+    m = torch.full((b, hq, sq, 1), -1e30)
+    l = torch.zeros(b, hq, sq, 1)
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, block_k):
+        kpos = torch.arange(k0, min(k0 + block_k, sk))[None, :]
+        mask = torch.ones(sq, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            mask &= qpos >= kpos
+        if window is not None:
+            mask &= qpos - kpos < window
+        s = torch.where(mask, q @ k[:, :, k0:k0 + block_k].transpose(-1, -2) * dh**-0.5,
+                        torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), torch.tensor(0.0))
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        m = m_new
+        parts, rest = [], p
+        for _ in range(terms):
+            parts.append(rest.to(torch.bfloat16).float())
+            rest = rest - parts[-1]
+        pv = torch.zeros_like(acc)
+        for part in reversed(parts):
+            pv = pv + part @ v[:, :, k0:k0 + block_k]
+        acc = acc * alpha + pv
+    return acc / torch.clamp(l, min=1e-30)
+
+
+def _split_ratios(shape, seed, causal, window, terms):
+    """(worst entry of the bf16 output over chip_smoke.py's bound, worst
+    entry of the float32 result before that rounding over the float32 term
+    FLASH_RTOL·(|ref| + row mean|ref|), share of bf16 entries that differ
+    from ``ref`` rounded to bf16), against ``ref = attention_ref`` in
+    float32 on the same bf16 inputs."""
+    q, k, v = _port(_inputs(seed, *shape), "bfloat16")
+    ref = attention_ref(q.float(), k.float(), v.float(), scale=shape[-1] ** -0.5,
+                        causal=causal, window=window)
+    raw = _emulate(q, k, v, causal=causal, window=window, terms=terms)
+    mag = ref.abs()
+    f32_bound = FLASH_RTOL * (mag + mag.mean(dim=-1, keepdim=True))
+    out = raw.to(torch.bfloat16)
+    return (float(((out.float() - ref).abs() / (f32_bound + BF16_ROUNDING * mag)).max()),
+            float(((raw - ref).abs() / f32_bound).max()),
+            float((out != ref.to(torch.bfloat16)).float().mean()))
+
+
+@pytest.mark.parametrize("shape,seed,causal,window", MATRIX + RAGGED + QWEN_HEAD)
+def test_the_kernels_p_terms_keep_the_bound(shape, seed, causal, window):
+    """With the kernel's 3 P terms every entry keeps chip_smoke.py's bf16
+    bound, and before the rounding to bf16 the float32 result keeps half
+    the float32 bound (measured: at most 0.195 of it).  The tensor cores'
+    own order of summation is not emulated: chip_smoke.py reads it on the
+    card, as the share of bf16 entries that differ from the float32 plain
+    result rounded to bf16."""
+    out_ratio, raw_ratio, _ = _split_ratios(shape, seed, causal, window, KERNEL_P_TERMS)
+    assert out_ratio <= 1.0
+    assert raw_ratio <= 0.5
+
+
+def test_one_bf16_p_term_breaks_the_bound():
+    """P rounded once to bf16 (FA-3's step) misses the bound by hundreds of
+    times on rows with few live keys."""
+    worst = max(_split_ratios(*case, terms=1)[0] for case in MATRIX[:1] + QWEN_HEAD)
+    assert worst > 1.0
+
+
+def test_two_bf16_p_terms_miss_the_float32_budget():
+    """Two terms carry 16 bits of P: the bf16 output still passes, the
+    rounding to bf16 hides the rest, but the float32 result before it
+    exceeds the float32 bound, so the kernel keeps three."""
+    worst = max(_split_ratios(*case, terms=2)[1] for case in MATRIX)
+    assert worst > 1.0
+
+
+def test_the_differ_share_tells_two_p_terms_from_three():
+    """chip_smoke.py's limit on the share of bf16 entries that differ from
+    the float32 plain result rounded to bf16 sees the float32 digits the
+    bound cannot: over the test matrix 3 terms keep it, 2 exceed it (the
+    emulation: about 1.7e-4 and 2.0e-3)."""
+    share = {terms: sum(_split_ratios(*case, terms=terms)[2] for case in MATRIX) / len(MATRIX)
+             for terms in (KERNEL_P_TERMS, 2)}
+    assert share[KERNEL_P_TERMS] <= BF16_DIFFER_SHARE < share[2]

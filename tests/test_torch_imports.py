@@ -1,8 +1,10 @@
-"""Static import audit: the port and chip_smoke.py import neither JAX nor
-anything of the reference package ``repro`` (``repro_torch`` is the port).
+"""Static import audit: the port, chip_smoke.py and the port's card
+scripts import neither JAX nor anything of the reference package ``repro``
+(``repro_torch`` is the port).
 
-Every ``.py`` under ``src/repro_torch/`` and ``chip_smoke.py`` is parsed
-with ``ast`` — nothing is imported or run.
+Every ``.py`` under ``src/repro_torch/``, ``chip_smoke.py`` and
+``scripts/flash_ablation.py`` is parsed with ``ast`` — nothing is imported
+or run.
 """
 import ast
 import pathlib
@@ -10,7 +12,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_ablation.py"]
 
 
 def forbidden_imports(tree: ast.AST) -> list[str]:

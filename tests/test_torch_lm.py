@@ -131,6 +131,18 @@ def test_module_inits_give_the_reference_shapes(module, cfg):
     assert all(bool(v.abs().sum() > 0) for v in got.values())  # every weight drawn
 
 
+@pytest.mark.parametrize("module", ["attention", "mlp", "block"])
+def test_module_inits_need_a_device(module, cfg):
+    """No default device: a caller that names none would get CPU weights."""
+    from repro_torch.models.attention import gqa_init
+    from repro_torch.models.blocks import decoder_block_init
+    from repro_torch.models.mlp import mlp_init
+
+    init = {"attention": gqa_init, "mlp": mlp_init, "block": decoder_block_init}[module]
+    with pytest.raises(TypeError, match="device"):
+        init(cfg, torch.float32, generator=torch.Generator().manual_seed(0))
+
+
 def test_init_draws_truncated_normals_at_fan_in_scale():
     w = torch.empty(256, 512)
     common.dense_init_(w, torch.Generator().manual_seed(1), 256)

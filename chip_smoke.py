@@ -14,10 +14,15 @@ Phases, one or more lines each; any failure exits non-zero:
 3. kernels  — on the full-size webStanford surrogate (n=281,903,
                m=2,312,497) at block 256, unweighted and weighted+biased,
                each kernel is held against its plain PyTorch version and
-               timed beside it, beside one library call where PyTorch has
+               timed beside it (the kernel and the library call by device
+               time in a profiler trace, or by CUDA events around a call
+               where a trace holds no device events, each time's line
+               saying which; the plain version by the host's clock),
+               beside one library call where PyTorch has
                one, and beside its bound from the H100's 3.35 TB/s
                (gs_pass_multi at b = 8 rows from make_query_stream, some
-               frozen, and its b = 1 identity with gs_pass);
+               frozen, and its b = 1 identity with gs_pass; then at b = 64,
+               and a pass of 65 rows in two launches, timed);
 4. solve    — the launcher's solve path (repro_torch.launch.pagerank_run)
                at full size with --handle-dangling for blocked,
                blocked_nosync, blocked_nosync_opt, nosync and barrier, with
@@ -64,8 +69,9 @@ Phases, one or more lines each; any failure exits non-zero:
                token the engine picks held against forward's argmax over
                the tokens its slot was fed.
 
-It then prints one JSON line naming every kernel, the nvidia-smi line, and
-last the JSON device record.  Without a CUDA device, or without the port's
+It then prints one JSON line naming every kernel (its ``timed_by`` says
+how each of its times was taken: ``"trace"`` or ``"events"``), the
+nvidia-smi line, and last the JSON device record.  Without a CUDA device, or without the port's
 sources beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -156,6 +162,33 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int, warmup: int = 3, tries: int = 3) -> tuple[float, str]:
+    """Device time of one call of ``fn`` and how it was taken: the CUDA
+    kernels and copies in a profiler trace of ``reps`` calls, over
+    ``reps`` (``"trace"``).  Unlike :func:`time_ms` it leaves out the
+    host's time to make the call, which a kernel of tens of microseconds
+    does not hide.  A trace now and then holds no device events; after
+    ``tries`` such traces it falls back to :func:`time_ms` (``"events"``)
+    and says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if rows:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / reps, "trace"
+    print(f"device_ms: {tries} traces held no device time; CUDA events instead",
+          flush=True)
+    return time_ms(fn, reps), "events"
+
+
 def bound_ms(nbytes: float) -> float:
     """Least time to move ``nbytes`` at the card's memory rate.  Every
     kernel here does a few float32 operations per 4–8 bytes it must move,
@@ -230,16 +263,21 @@ def kernel_phase(g, gw, dev):
         csr = torch.sparse_csr_tensor(bg.in_ptr, bg.src, vals, (n_pad, n_pad))
         flat = contrib.reshape(-1)
         lib_err = float((torch.mv(csr, flat).reshape(shape) - ref).abs().max())
+        ms, ms_by = device_ms(spmv, 50)
+        lib_ms, lib_by = device_ms(lambda: torch.mv(csr, flat), 50)
         s = stats["spmv_csr_acc"][tag] = dict(
             max_abs_err=err, rel_err=rel,
-            ms=time_ms(spmv, 50), plain_ms=time_ms(spmv_plain, 20),
-            library_ms=time_ms(lambda: torch.mv(csr, flat), 50))
+            ms=ms, plain_ms=time_ms(spmv_plain, 20), library_ms=lib_ms,
+            timed_by={"ms": ms_by, "plain_ms": "events", "library_ms": lib_by},
+            call_ms=time_ms(spmv, 50),
+            library_call_ms=time_ms(lambda: torch.mv(csr, flat), 50))
         s["bound_ms"] = bound_ms(4 * n_pad + csr_bytes + 4 * n_pad)
         print(f"kernel spmv_csr_acc {tag}: max_abs_err={err:.3e} "
               f"rel={rel:.3e} entry_rel={ent:.3e} (bound {KERNEL_RTOL:g}) "
-              f"ms={s['ms']:.4f} "
-              f"plain_ms={s['plain_ms']:.4f} library_ms={s['library_ms']:.4f} "
-              f"(torch.sparse CSR mv, max_abs_err={lib_err:.3e}) "
+              f"ms={ms:.4f} (device, by {ms_by}; a call {s['call_ms']:.4f}) "
+              f"plain_ms={s['plain_ms']:.4f} library_ms={lib_ms:.4f} "
+              f"(device, by {lib_by}; a call {s['library_call_ms']:.4f}; torch.sparse CSR mv, "
+              f"max_abs_err={lib_err:.3e}) "
               f"bound_ms={s['bound_ms']:.4f} (bytes)", flush=True)
 
         out, ref = gs(), gs_plain()
@@ -248,14 +286,16 @@ def kernel_phase(g, gw, dev):
         check(torch.equal(out[frozen], pr[frozen]),
               f"gs_pass ({tag}) moved a frozen lane")
         check(torch.equal(out, gs()), f"gs_pass ({tag}) not deterministic")
+        ms, ms_by = device_ms(gs, 20)
         s = stats["gs_pass"][tag] = dict(
             max_abs_err=err, rel_err=rel,
-            ms=time_ms(gs, 20), plain_ms=time_ms(gs_plain, 3, warmup=1),
-            library_ms=None)
+            ms=ms, plain_ms=time_ms(gs_plain, 3, warmup=1), library_ms=None,
+            timed_by={"ms": ms_by, "plain_ms": "events"})
         rank_bytes = 4 * n_pad * (4 + (bg.bias is not None)) + n_pad + 12
         s["bound_ms"] = bound_ms(rank_bytes + csr_bytes)
         print(f"kernel gs_pass {tag}: max_abs_err={err:.3e} rel={rel:.3e} "
-              f"entry_rel={ent:.3e} (bound {KERNEL_RTOL:g}) ms={s['ms']:.4f} "
+              f"entry_rel={ent:.3e} (bound {KERNEL_RTOL:g}) ms={ms:.4f} "
+              f"(device, by {ms_by}) "
               f"plain_ms={s['plain_ms']:.4f} library_ms=null "
               f"bound_ms={s['bound_ms']:.4f} (bytes; plus "
               f"{bg.n_blocks} dependent block steps per pass)", flush=True)
@@ -264,17 +304,16 @@ def kernel_phase(g, gw, dev):
     return stats
 
 
-def multi_kernel_check(graph, bg, tag, gs, params, csr_bytes):
-    """gs_pass_multi at b = PPR_ROWS rows of make_query_stream, rows 2 and
-    5 frozen, against its plain version; its b = 1 identity with gs_pass;
-    its time beside PPR_ROWS launches of gs_pass."""
-    from repro_torch.kernels.spmv import gs_pass, gs_pass_multi, gs_pass_multi_ref
+def multi_inputs(graph, bg, b):
+    """gs_pass_multi's operands at b rows: the teleport rows of
+    make_query_stream(n, b, seed=0), a state of half of them plus noise,
+    rows 2 and 5 frozen where there are such rows.  Returns (pr, the
+    operands after pr)."""
     from repro_torch.ppr.batched import bias_scaled, blocked_rows, teleport_from_seeds
     from repro_torch.serving import make_query_stream
 
     dev = bg.vmask.device
     d = 0.85
-    b = PPR_ROWS
     seeds = [q.seeds for q in make_query_stream(graph.n, b, seed=0)]
     t = bias_scaled(teleport_from_seeds(seeds, graph.n), graph.bias)
     tele = torch.as_tensor(blocked_rows(t.astype(np.float32), bg.n_blocks,
@@ -286,9 +325,25 @@ def multi_kernel_check(graph, bg, tag, gs, params, csr_bytes):
     dmass = torch.sum(pr * bg.dangling[..., None], dim=(0, 1))
     coef = (1.0 - d) + d * dmass
     frozen = torch.zeros(b, dtype=torch.bool, device=dev)
-    frozen[[2, 5]] = True
-    args = (bg.inv_out, bg.vmask, tele, coef, d, bg.in_ptr, bg.src, bg.weights,
-            frozen)
+    frozen[[r for r in (2, 5) if r < b]] = True
+    return pr, (bg.inv_out, bg.vmask, tele, coef, d, bg.in_ptr, bg.src,
+                bg.weights, frozen)
+
+
+def multi_kernel_check(graph, bg, tag, gs, params, csr_bytes):
+    """gs_pass_multi at b = PPR_ROWS rows of make_query_stream, rows 2 and
+    5 frozen, against its plain version; its b = 1 identity with gs_pass;
+    its time beside PPR_ROWS launches of gs_pass; then the widest launch
+    (MAX_BATCH rows) against its plain version, and the pass of
+    PPR_WIDE_ROWS rows in two launches, timed."""
+    from repro_torch.kernels.spmv import gs_pass, gs_pass_multi, gs_pass_multi_ref
+    from repro_torch.kernels.spmv.kernel import MAX_BATCH
+
+    dev = bg.vmask.device
+    d = 0.85
+    b = PPR_ROWS
+    pr, args = multi_inputs(graph, bg, b)
+    tele, frozen = args[2], args[8]
 
     def multi():
         return gs_pass_multi(pr, *args)
@@ -323,18 +378,47 @@ def multi_kernel_check(graph, bg, tag, gs, params, csr_bytes):
             gs()
 
     n_pad = bg.n_blocks * bg.block
-    s = dict(max_abs_err=err, rel_err=rel, ms=time_ms(multi, 10),
+    ms, ms_by = device_ms(multi, 10)
+    s = dict(max_abs_err=err, rel_err=rel, ms=ms,
              plain_ms=time_ms(multi_plain, 3, warmup=1), library_ms=None,
-             singles_ms=time_ms(b_singles, 5, warmup=1))
+             timed_by={"ms": ms_by, "plain_ms": "events"},
+             singles_ms=time_ms(b_singles, 5, warmup=1), call_ms=time_ms(multi, 10))
     # pr, tele read and the new state written at b floats a vertex; inv_out
     # and vmask once; coef and the frozen mask
     s["bound_ms"] = bound_ms(3 * 4 * n_pad * b + 2 * 4 * n_pad + 5 * b + csr_bytes)
     print(f"kernel gs_pass_multi {tag} b={b}: max_abs_err={err:.3e} "
           f"rel={rel:.3e} entry_rel={ent:.3e} (bound {KERNEL_RTOL:g}) frozen "
-          f"rows bit-identical; b=1 bit-identical to gs_pass; ms={s['ms']:.4f} "
+          f"rows bit-identical; b=1 bit-identical to gs_pass; ms={ms:.4f} "
+          f"(device, by {ms_by}; a call {s['call_ms']:.4f}) "
           f"plain_ms={s['plain_ms']:.4f} library_ms=null bound_ms="
           f"{s['bound_ms']:.4f} (bytes; plus {bg.n_blocks} dependent block "
           f"steps per pass); {b} launches of gs_pass: {s['singles_ms']:.4f} ms",
+          flush=True)
+
+    wide_pr, wide_args = multi_inputs(graph, bg, PPR_WIDE_ROWS)
+    chunks = [(wide_pr[..., rows].contiguous(),
+               tuple(a[..., rows].contiguous() if torch.is_tensor(a) and a.shape[-1:] == (PPR_WIDE_ROWS,) else a
+                     for a in wide_args))
+              for rows in (slice(0, MAX_BATCH), slice(MAX_BATCH, PPR_WIDE_ROWS))]
+    top_pr, top_args = chunks[0]
+    out, ref = gs_pass_multi(top_pr, *top_args), gs_pass_multi_ref(top_pr, *top_args)
+    torch.cuda.synchronize()
+    err_w, _, ent_w = check_agreement(f"gs_pass_multi ({tag}, b={MAX_BATCH})", out, ref)
+    top_frozen = top_args[8]
+    check(torch.equal(out[..., top_frozen], top_pr[..., top_frozen]),
+          f"gs_pass_multi ({tag}, b={MAX_BATCH}) moved a frozen row")
+    check(torch.equal(out, gs_pass_multi(top_pr, *top_args)),
+          f"gs_pass_multi ({tag}, b={MAX_BATCH}) not deterministic")
+    s["max_abs_err"] = max(err, err_w)
+    s["b64_ms"], b64_by = device_ms(lambda: gs_pass_multi(top_pr, *top_args), 10)
+    s["rows65_ms"], rows65_by = device_ms(
+        lambda: [gs_pass_multi(p, *a) for p, a in chunks], 10)
+    print(f"kernel gs_pass_multi {tag} b={MAX_BATCH}: max_abs_err={err_w:.3e} "
+          f"entry_rel={ent_w:.3e} (bound {KERNEL_RTOL:g}) frozen rows "
+          f"bit-identical; ms={s['b64_ms']:.4f} (device, by {b64_by}; "
+          f"{s['b64_ms'] / s['ms']:.3f}x b={b}); a pass of {PPR_WIDE_ROWS} rows "
+          f"in two launches ({MAX_BATCH} + {PPR_WIDE_ROWS - MAX_BATCH}): "
+          f"{s['rows65_ms']:.4f} ms (device, by {rows65_by})",
           flush=True)
     return s
 
@@ -1104,6 +1188,7 @@ def main() -> int:
             "max_abs_err": max(t["max_abs_err"] for t in by_tag.values()),
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": s["library_ms"],
+            "timed_by": s["timed_by"],
         })
     f = flash[(torch.bfloat16, None)]  # prefill's shape and dtype, causal
     kernels.append({
@@ -1113,6 +1198,7 @@ def main() -> int:
         "launches": launches["flash_attention"], "max_abs_err": f["max_abs_err"],
         "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
+        "timed_by": {"ms": "events", "plain_ms": "events", "library_ms": "events"},
     })
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     print(f"total: {time.perf_counter() - t_start:.1f}s")

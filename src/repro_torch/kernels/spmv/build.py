@@ -17,20 +17,24 @@ def build() -> tuple[pathlib.Path, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
+def load(path: pathlib.Path | None = None) -> ctypes.CDLL:
     """The built library with its C signatures declared (built on first
-    call; one load per process)."""
-    path, _ = build()
+    call; one load per process).  ``path`` loads another library built
+    from a copy of the source with the same C interface instead."""
+    if path is None:
+        path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.spmv_csr_acc.argtypes = [p, p, p, p, p, i, i, p]
+    lib.spmv_csr_acc.argtypes = [p, p, p, p, p, i, i, i, p, p]
     lib.spmv_csr_acc.restype = i
+    lib.spmv_csr_acc_ctas.argtypes = [i]
+    lib.spmv_csr_acc_ctas.restype = i
     lib.gs_pass.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p]
     lib.gs_pass.restype = i
-    lib.gs_pass_multi.argtypes = [p, p, p, p, p, p, ctypes.c_float, p, p, p,
+    lib.gs_pass_multi.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p, p, p,
                                   i, i, i, p]
     lib.gs_pass_multi.restype = i
-    lib.gs_pass_multi_smem_bytes.argtypes = [i, i]
+    lib.gs_pass_multi_smem_bytes.argtypes = [i]
     lib.gs_pass_multi_smem_bytes.restype = ctypes.c_size_t
     lib.smem_per_block_optin.argtypes = [i]
     lib.smem_per_block_optin.restype = i

@@ -16,6 +16,8 @@ float32 ``(n_blocks, block, b)``, vertex-major.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.spmv import build
@@ -25,13 +27,13 @@ from repro_torch.kernels.spmv.ref import (
     spmv_csr_acc_ref,
 )
 
-# Shared memory per CTA is 4·(4096 + block) + 4·(block + 1) bytes; this
-# bound keeps it well inside the 227 KB a CTA may use.
+# gs_pass's shared memory per CTA is 4·(4096 + block) + 4·(block + 1)
+# bytes; this bound keeps it well inside the 227 KB a CTA may use.
 MAX_BLOCK = 16384
-# gs_pass_multi stages b values per edge and a (block, b) accumulator in
-# shared memory; b is bounded here, and csrc/spmv.cu sizes the staging and
-# checks it against the card's per-CTA limit before each launch.  More
-# rows go through in chunks (gs_pass_multi_max_batch).
+# gs_pass_multi runs one cluster of CTAs a row; b is bounded here, and more
+# rows go through in chunks (gs_pass_multi_max_batch).  csrc/spmv.cu sizes a
+# CTA's staging by block alone, which the wrapper checks against the card's
+# per-CTA limit before each launch.
 MAX_BATCH = 64
 
 _LAUNCHES = {"spmv_csr_acc": 0, "gs_pass": 0, "gs_pass_multi": 0}
@@ -83,6 +85,40 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed with cudaError {err}")
 
 
+def _device_index(dev: torch.device) -> int:
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+@functools.lru_cache(maxsize=None)
+def _spmv_ctas(lib, index: int) -> int:
+    """CTAs of one :func:`spmv_csr_acc` launch on card ``index``: as many
+    as are resident at once, as the built library computes them."""
+    ctas = lib.spmv_csr_acc_ctas(index)
+    if ctas <= 0:
+        raise RuntimeError(f"spmv_csr_acc: no CTA fits on card {index} ({ctas})")
+    return ctas
+
+
+def launch_spmv_csr_acc(lib, contrib: torch.Tensor, in_ptr: torch.Tensor,
+                        src: torch.Tensor,
+                        weights: torch.Tensor | None) -> torch.Tensor:
+    """Launch ``spmv_csr_acc`` of the loaded library ``lib`` on CUDA
+    operands that :func:`spmv_csr_acc` has checked and found not empty,
+    without counting it; ``scripts/spmv_ablation.py`` launches copies of
+    the source this way."""
+    acc = torch.empty_like(contrib)
+    dev = contrib.device
+    ctas = _spmv_ctas(lib, _device_index(dev))
+    scratch = torch.empty(2 * ctas, dtype=torch.int32, device=dev)  # CTA carries
+    err = lib.spmv_csr_acc(
+        contrib.data_ptr(), in_ptr.data_ptr(), src.data_ptr(),
+        None if weights is None else weights.data_ptr(), acc.data_ptr(),
+        contrib.numel(), src.numel(), ctas, scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "spmv_csr_acc")
+    return acc
+
+
 def spmv_csr_acc(contrib: torch.Tensor, in_ptr: torch.Tensor,
                  src: torch.Tensor,
                  weights: torch.Tensor | None = None) -> torch.Tensor:
@@ -94,23 +130,19 @@ def spmv_csr_acc(contrib: torch.Tensor, in_ptr: torch.Tensor,
     one-hot matrix products.  The H100 gathers directly from the in-CSR.
     Bound: bytes — about 4 B per edge of ``src`` (8 B weighted) plus the
     ``contrib`` gathers and 12 B per row; a handful of flops per edge.
-    Design: one CTA per dst block streams the block's contiguous edge range
-    with every thread (coalesced, many gathers in flight) into shared
-    memory, and one owner warp per row sums its slice in a fixed order —
-    deterministic, no atomics, and a hub row costs a shared-memory pass
-    instead of a serial chain of global loads."""
+    Design: merge-path SpMV.  A grid of as many CTAs as the card holds at
+    once takes equal shares of the rows' ends and edges together, so a hub
+    row is spread over CTAs instead of holding one; each thread walks an
+    equal run of a share, and rows cut between threads or CTAs are joined
+    by a segmented scan and a second small kernel, in a fixed order —
+    deterministic, no atomics."""
     n_blocks, block = _check_graph(contrib, in_ptr, src, weights)
     _check("contrib", contrib, torch.float32, (n_blocks, block), contrib.device)
     if contrib.device.type == "cpu":
         return spmv_csr_acc_ref(contrib, in_ptr, src, weights)
-    acc = torch.empty_like(contrib)
-    if n_blocks == 0:
-        return acc
-    err = build.load().spmv_csr_acc(
-        contrib.data_ptr(), in_ptr.data_ptr(), src.data_ptr(),
-        None if weights is None else weights.data_ptr(), acc.data_ptr(),
-        n_blocks, block, torch.cuda.current_stream(contrib.device).cuda_stream)
-    _raise_on(err, "spmv_csr_acc")
+    if contrib.numel() == 0:
+        return torch.empty_like(contrib)
+    acc = launch_spmv_csr_acc(build.load(), contrib, in_ptr, src, weights)
     _LAUNCHES["spmv_csr_acc"] += 1
     return acc
 
@@ -133,9 +165,11 @@ def gs_pass(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
     steps, each a few global-memory latencies; the bytes (one read of the
     in-CSR and the rank-shaped operands, one write of the ranks) are far
     below that.  Design: a single persistent CTA of 1024 threads walks the
-    dst blocks in order, sums each block as :func:`spmv_csr_acc` does, and
-    commits after a barrier; a second barrier publishes the commit to the
-    next block's gathers.  Exact and deterministic, on one SM of 132."""
+    dst blocks in order; every thread stages a share of the block's
+    contiguous edge range in shared memory, one owner warp per row sums its
+    slice in a fixed order, and the block commits after a barrier; a second
+    barrier publishes the commit to the next block's gathers.  Exact and
+    deterministic, on one SM of 132."""
     n_blocks, block = _check_graph(pr, in_ptr, src, weights)
     dev = pr.device
     for name, t in (("pr", pr), ("inv_out", inv_out), ("vmask", vmask),
@@ -146,11 +180,28 @@ def gs_pass(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
     if dev.type == "cpu":
         return gs_pass_ref(pr, inv_out, vmask, params, in_ptr, src, weights,
                            bias, frozen)
+    if n_blocks == 0:
+        return pr.clone()
+    out = launch_gs_pass(build.load(), pr, inv_out, vmask, params, in_ptr, src,
+                         weights, bias, frozen)
+    _LAUNCHES["gs_pass"] += 1
+    return out
+
+
+def launch_gs_pass(lib, pr: torch.Tensor, inv_out: torch.Tensor,
+                   vmask: torch.Tensor, params: torch.Tensor,
+                   in_ptr: torch.Tensor, src: torch.Tensor,
+                   weights: torch.Tensor | None, bias: torch.Tensor | None,
+                   frozen: torch.Tensor | None) -> torch.Tensor:
+    """Launch ``gs_pass`` of the loaded library ``lib`` on CUDA operands
+    that :func:`gs_pass` has checked and found not empty, without counting
+    it; ``scripts/spmv_ablation.py`` launches copies of the source this
+    way."""
+    n_blocks, block = pr.shape
+    dev = pr.device
     out = torch.empty_like(pr)
     out.copy_(pr)
-    if n_blocks == 0:
-        return out
-    err = build.load().gs_pass(
+    err = lib.gs_pass(
         out.data_ptr(), inv_out.data_ptr(), vmask.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if frozen is None else frozen.data_ptr(),
@@ -158,15 +209,13 @@ def gs_pass(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
         None if weights is None else weights.data_ptr(),
         n_blocks, block, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "gs_pass")
-    _LAUNCHES["gs_pass"] += 1
     return out
 
 
 def _smem_per_block(lib, dev: torch.device) -> int:
     """Shared memory a CTA may use on ``dev``, in bytes, as the card reports
     (``cuda`` with no index is the current card)."""
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    have = lib.smem_per_block_optin(index)
+    have = lib.smem_per_block_optin(_device_index(dev))
     if have < 0:
         _raise_on(-have, "gs_pass_multi")
     return have
@@ -174,8 +223,9 @@ def _smem_per_block(lib, dev: torch.device) -> int:
 
 def gs_pass_multi_max_batch(block: int, device: torch.device) -> int:
     """The most rows one :func:`gs_pass_multi` call takes at ``block``:
-    :data:`MAX_BATCH`, and on the card no more than the built library's
-    staging (``gs_pass_multi_smem_bytes`` in ``csrc/spmv.cu``) fits into a
+    :data:`MAX_BATCH`.  On the card it raises ``ValueError`` where the
+    built library's staging at ``block`` (``gs_pass_multi_smem_bytes`` in
+    ``csrc/spmv.cu``, the same for any number of rows) does not fit into a
     CTA's shared memory.  Callers with more rows split them into chunks of
     this size."""
     device = torch.device(device)
@@ -183,13 +233,42 @@ def gs_pass_multi_max_batch(block: int, device: torch.device) -> int:
         return MAX_BATCH
     lib = build.load()
     have = _smem_per_block(lib, device)
-    b = MAX_BATCH
-    while b > 0 and lib.gs_pass_multi_smem_bytes(block, b) > have:
-        b -= 1
-    if b == 0:
+    if lib.gs_pass_multi_smem_bytes(block) > have:
         raise ValueError(f"block={block} leaves no room for one row in the "
                          f"{have} B of shared memory a CTA may use on {device}")
-    return b
+    return MAX_BATCH
+
+
+def launch_gs_pass_multi(lib, pr: torch.Tensor, inv_out: torch.Tensor,
+                         vmask: torch.Tensor, tele: torch.Tensor,
+                         coef: torch.Tensor, d: float, in_ptr: torch.Tensor,
+                         src: torch.Tensor, weights: torch.Tensor | None,
+                         frozen_rows: torch.Tensor | None) -> torch.Tensor:
+    """Launch ``gs_pass_multi`` of the loaded library ``lib`` on CUDA
+    operands that :func:`gs_pass_multi` has checked and found not empty,
+    without counting it; ``scripts/spmv_ablation.py`` launches copies of
+    the source this way."""
+    n_blocks, block, b = pr.shape
+    dev = pr.device
+    if n_blocks * block * b >= 2**31:
+        raise ValueError("state overflows the kernel's int32 vertex offsets")
+    need = lib.gs_pass_multi_smem_bytes(block)
+    have = _smem_per_block(lib, dev)
+    if need > have:
+        raise ValueError(f"block={block} needs {need} B of shared memory, "
+                         f"over the {have} B a CTA may use on {dev}")
+    out = torch.empty_like(pr)
+    out.copy_(pr)
+    scaled = torch.empty((2, *pr.shape), dtype=pr.dtype, device=dev)  # pr · inv_out, old and new
+    err = lib.gs_pass_multi(
+        out.data_ptr(), scaled.data_ptr(), inv_out.data_ptr(), vmask.data_ptr(),
+        tele.data_ptr(),
+        coef.data_ptr(), None if frozen_rows is None else frozen_rows.data_ptr(),
+        float(d), in_ptr.data_ptr(), src.data_ptr(),
+        None if weights is None else weights.data_ptr(),
+        n_blocks, block, b, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "gs_pass_multi")
+    return out
 
 
 def gs_pass_multi(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
@@ -209,14 +288,21 @@ def gs_pass_multi(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
     (src/repro/kernels/spmv/kernel.py), which holds the whole
     ``(n_blocks, b, block)`` batch in VMEM and shares each tile's index
     stream across the batch.  Bound: the order, as for :func:`gs_pass` —
-    a pass is ``n_blocks`` dependent block steps on one SM; its bytes (the
-    in-CSR once, the state and teleport rows once each) are far below
-    that.  Design: :func:`gs_pass`'s persistent CTA, with a vertex-major
-    state so that one edge's gather reads its ``b`` values from one
-    sector, the in-CSR read once per edge for all rows, and ``base``
-    formed in the epilogue from ``tele`` and ``coef`` instead of a
-    full-size operand.  With ``b = 1`` it computes exactly what
-    :func:`gs_pass` computes."""
+    a pass is ``n_blocks`` dependent block steps; its bytes (the in-CSR
+    once, the state and teleport rows once each) are far below that.
+    Design: the rows are independent within a pass, so each row walks all
+    blocks on a cluster of up to 8 CTAs, each owning a share of every
+    block's vertices and gathering only their edges; the cluster meets at
+    a barrier before each block, and a CTA reads the values its peers
+    committed from their shared memory.  Two scratch copies of the state times ``inv_out``
+    (the previous pass's, and this pass's, which each commit writes) make
+    an edge one 16-byte gather through L2.
+    Each CTA copies the next round of edges into shared memory with
+    ``cp.async`` while it sums the current round, so a block step waits on
+    no global round trip.  For ``b ≤ 32`` each row is summed in the parent
+    kernel's order at the same ``b`` (with ``b = 1`` it computes exactly
+    what :func:`gs_pass` computes), for ``b > 32`` in edge order, the plain
+    version's."""
     n_blocks, block = _check_graph(pr, in_ptr, src, weights,
                                    layout=("n_blocks", "block", "b"))
     b = pr.shape[2]
@@ -232,24 +318,9 @@ def gs_pass_multi(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
     if dev.type == "cpu":
         return gs_pass_multi_ref(pr, inv_out, vmask, tele, coef, d, in_ptr,
                                  src, weights, frozen_rows)
-    if n_blocks * block * b >= 2**31:
-        raise ValueError("state overflows the kernel's int32 vertex offsets")
-    lib = build.load()
-    need = lib.gs_pass_multi_smem_bytes(block, b)
-    have = _smem_per_block(lib, dev)
-    if need > have:
-        raise ValueError(f"block={block} with b={b} needs {need} B of shared "
-                         f"memory, over the {have} B a CTA may use on {dev}")
-    out = torch.empty_like(pr)
-    out.copy_(pr)
     if n_blocks == 0:
-        return out
-    err = lib.gs_pass_multi(
-        out.data_ptr(), inv_out.data_ptr(), vmask.data_ptr(), tele.data_ptr(),
-        coef.data_ptr(), None if frozen_rows is None else frozen_rows.data_ptr(),
-        float(d), in_ptr.data_ptr(), src.data_ptr(),
-        None if weights is None else weights.data_ptr(),
-        n_blocks, block, b, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "gs_pass_multi")
+        return pr.clone()
+    out = launch_gs_pass_multi(build.load(), pr, inv_out, vmask, tele, coef, d,
+                               in_ptr, src, weights, frozen_rows)
     _LAUNCHES["gs_pass_multi"] += 1
     return out

@@ -98,6 +98,106 @@ def test_spmv_csr_acc_matches_plain(cuda, gname, block):
     assert torch.equal(out, spmv_csr_acc(contrib, bg.in_ptr, bg.src, bg.weights))
 
 
+def _csr_case(case, ctas):
+    """(graph, block) that walks one path of spmv_csr_acc's merge split:
+    ``star``, a hub row with far more in-edges than one CTA's share of row
+    ends and edges, so its sum is carried across many CTAs; ``aligned``,
+    rows of 3 in-edges, 64 rows a CTA, so every CTA's share ends on a row
+    end; ``sparse``, only every 7th row has in-edges; ``empty``, no edges."""
+    rng = np.random.default_rng(11)
+    if case == "star":
+        n = 20000
+        src = np.r_[np.arange(1, n), rng.integers(0, n, 2 * n)]
+        dst = np.r_[np.zeros(n - 1, np.int64), rng.integers(1, n, 2 * n)]
+        key = np.unique(src * n + dst)
+        return Graph.from_edges(n, key // n, key % n), 256
+    if case == "aligned":
+        n, k = 64 * ctas, 3
+        dst = np.repeat(np.arange(n), k)
+        return Graph.from_edges(n, (dst + 1 + np.tile(np.arange(k), n)) % n, dst), 64
+    if case == "sparse":
+        n = 7000
+        dst = 7 * rng.integers(0, n // 7, 4 * n)
+        key = np.unique(rng.integers(0, n, 4 * n) * n + dst)
+        return Graph.from_edges(n, key // n, key % n), 256
+    return Graph.from_edges(1000, np.zeros(0, np.int64), np.zeros(0, np.int64)), 64
+
+
+@pytest.mark.parametrize("case", ["star", "aligned", "sparse", "empty"])
+def test_spmv_csr_acc_joins_rows_cut_between_ctas(cuda, case):
+    from repro_torch.kernels.spmv import kernel
+
+    ctas = kernel._spmv_ctas(kernel.build.load(), torch.cuda.current_device())
+    g, block = _csr_case(case, ctas)
+    bg = BlockedGraph.build(g, block=block, device=cuda)
+    if case == "aligned":  # one share a CTA, each ending on a row end
+        assert (bg.n_blocks * bg.block + g.m) % ctas == 0
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    contrib = torch.rand(bg.vmask.shape, generator=gen, device=cuda) * bg.vmask
+    out = spmv_csr_acc(contrib, bg.in_ptr, bg.src, bg.weights)
+    ref = spmv_csr_acc_ref(contrib, bg.in_ptr, bg.src, bg.weights)
+    torch.cuda.synchronize()
+    if case == "empty":
+        assert not torch.any(out != 0)
+    else:
+        assert _rel_err(out, ref) <= RTOL
+    assert torch.equal(out, spmv_csr_acc(contrib, bg.in_ptr, bg.src, bg.weights))
+
+
+def _chain(block, n_blocks=12):
+    """Each row of block k + 1 takes its in-edges from rows of block k only
+    (two each), so a Gauss-Seidel pass carries every value down the chain
+    one block a step: a block summed from a stale copy of the block just
+    committed is off in every entry."""
+    n = block * n_blocks
+    v = np.arange(block, n)
+    src = np.r_[v - block, (v - block + 1) % block + (v // block - 1) * block]
+    dst = np.r_[v, v]
+    return Graph.from_edges(n, src, dst)
+
+
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_gs_pass_multi_reads_the_block_just_committed(cuda, b):
+    g = _chain(256)
+    bg = BlockedGraph.build(g, block=256, device=cuda)
+    rng = np.random.default_rng(b)
+    tele = torch.as_tensor(0.5 + rng.random((bg.n_blocks, bg.block, b)).astype(np.float32) / 2,
+                           device=cuda)
+    pr = torch.zeros_like(tele)
+    coef = torch.full((b,), 1.0, device=cuda)
+    args = (bg.inv_out, bg.vmask, tele, coef, 0.85, bg.in_ptr, bg.src, bg.weights)
+    out = gs_pass_multi(pr, *args)
+    ref = gs_pass_multi_ref(pr, *args)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= RTOL
+    # a block that read the block above before it committed would read the
+    # previous pass's zeros and commit tele · coef: far outside the bound
+    stale = tele * coef
+    scale = ref.abs() + ref.abs().mean(dim=(0, 1), keepdim=True)
+    assert float(((ref - stale).abs() / scale)[1:].min()) > 100 * RTOL
+
+
+@pytest.mark.parametrize("b", [1, 5, 33, 64])
+@pytest.mark.parametrize("gname", ["rmat", "rmat_weighted", "hub"])
+def test_gs_pass_multi_rows_across_ctas(cuda, gname, b):
+    """Widths that are not a multiple of the rows a CTA owns, frozen rows
+    among them, at block 256.  The hub's part of its block spans many
+    rounds, so the other CTAs of its cluster commit their parts of that
+    block while it still reads sources in it, which must keep their old
+    values."""
+    g = _graphs()[gname]
+    bg = BlockedGraph.build(g, block=256, device=cuda)
+    pr, tele, coef, frozen = _multi_inputs(g, bg, b, cuda, seed=10 + b)
+    args = (bg.inv_out, bg.vmask, tele, coef, 0.85, bg.in_ptr, bg.src,
+            bg.weights, frozen)
+    out = gs_pass_multi(pr, *args)
+    ref = gs_pass_multi_ref(pr, *args)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= RTOL
+    assert torch.equal(out[..., frozen], pr[..., frozen])
+    assert torch.equal(out, gs_pass_multi(pr, *args))
+
+
 @pytest.mark.parametrize("block", [64, 256, 1000])
 @pytest.mark.parametrize("gname", ["rmat", "rmat_weighted", "hub"])
 def test_gs_pass_matches_plain(cuda, gname, block):
@@ -135,6 +235,26 @@ def test_wrappers_count_their_launches(cuda):
                   0.85, bg.in_ptr, bg.src)
     assert launch_counts() == {"spmv_csr_acc": 1, "gs_pass": 2,
                                "gs_pass_multi": 1}
+
+
+def test_wrappers_count_no_launch_on_empty_input(cuda):
+    """An input with no vertices launches nothing, so it adds nothing to
+    any count, and each wrapper still returns its (empty) result."""
+    block = 256
+    empty = torch.zeros(0, block, device=cuda)
+    in_ptr = torch.zeros(1, dtype=torch.int32, device=cuda)
+    src = torch.zeros(0, dtype=torch.int32, device=cuda)
+    params = torch.tensor([0.15, 0.85, 0.0], device=cuda)
+    st = torch.zeros(0, block, 2, device=cuda)
+    reset_launch_counts()
+    outs = (spmv_csr_acc(empty, in_ptr, src),
+            gs_pass(empty, empty, empty, params, in_ptr, src),
+            gs_pass_multi(st, empty, empty, st, torch.ones(2, device=cuda),
+                          0.85, in_ptr, src))
+    torch.cuda.synchronize()
+    assert [tuple(o.shape) for o in outs] == [(0, block), (0, block), (0, block, 2)]
+    assert launch_counts() == {"spmv_csr_acc": 0, "gs_pass": 0,
+                               "gs_pass_multi": 0}
 
 
 @pytest.mark.parametrize("vname", ["blocked", "blocked_nosync", "blocked_nosync_opt"])
@@ -211,10 +331,11 @@ def test_gs_pass_multi_b1_is_gs_pass_on_card(cuda, gname):
 
 
 def test_gs_pass_multi_rejects_what_does_not_fit(cuda):
-    """block 1024 at b = 64 needs more shared memory than a CTA may opt
-    into on the H100 (227 KB); block 256 at b = 64 fits and launches."""
+    """block 8192 at b = 64 needs more shared memory than a CTA may opt
+    into on the H100 (227 KB: a CTA stages two slices of each block); block
+    256 at b = 64 fits and launches."""
     g = _graphs()["rmat"]
-    for block, fits in ((1024, False), (256, True)):
+    for block, fits in ((8192, False), (256, True)):
         bg = BlockedGraph.build(g, block=block, device=cuda)
         st = torch.zeros(bg.n_blocks, bg.block, 64, device=cuda)
         args = (st, bg.inv_out, bg.vmask, st, torch.zeros(64, device=cuda),

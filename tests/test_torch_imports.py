@@ -2,8 +2,9 @@
 scripts import neither JAX nor anything of the reference package ``repro``
 (``repro_torch`` is the port).
 
-Every ``.py`` under ``src/repro_torch/``, ``chip_smoke.py`` and
-``scripts/flash_ablation.py`` is parsed with ``ast`` — nothing is imported
+Every ``.py`` under ``src/repro_torch/``, ``chip_smoke.py`` and the
+card scripts (``scripts/flash_ablation.py``, ``scripts/spmv_ablation.py``,
+``scripts/spmv_times.py``) is parsed with ``ast`` — nothing is imported
 or run.
 """
 import ast
@@ -13,7 +14,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_ablation.py"]
+    ROOT / "chip_smoke.py"] + [
+    ROOT / "scripts" / name
+    for name in ("flash_ablation.py", "spmv_ablation.py", "spmv_times.py")]
 
 
 def forbidden_imports(tree: ast.AST) -> list[str]:

@@ -369,6 +369,35 @@ def test_gs_pass_multi_matches_reference_ppr_nosync(gname, k, handle_dangling):
     assert np.abs(got.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("k", [1, 2])
+def test_gs_pass_multi_reads_the_block_just_committed(k):
+    """A chain of blocks: each row of block i + 1 takes its two in-edges
+    from block i only, and the seeds sit in block 0, so one pass carries
+    their mass down the chain a block a step and every block below the
+    first reads the block committed just before it.  Held against the
+    reference's ``ppr_nosync`` with one partition per block; a pass that
+    summed a block from a copy of the block above taken before it
+    committed would leave every block below the second without mass."""
+    from repro.graphs.csr import Graph as RefGraph
+
+    block, n_blocks = 16, 6
+    n = block * n_blocks
+    v = np.arange(block, n)
+    src = np.r_[v - block, (v + 1) % block + (v // block - 1) * block]
+    g = RefGraph.from_edges(n, src, np.r_[v, v])
+    bg = BlockedGraph.build(port(g), block=block, device=CPU)
+    seeds = [(0,), (1, 2), (5,)]
+    ref = np.asarray(ref_batched.ppr_nosync(
+        RefPartitionedGraph.from_graph(g, p=n_blocks),
+        ref_batched.teleport_from_seeds(seeds, n), threshold=0.0, max_iter=k,
+        thread_level=False, handle_dangling=False).pr)
+    tele = torch.as_tensor(blocked_rows(
+        batched.teleport_from_seeds(seeds, n).astype(np.float32), n_blocks, block))
+    got = unblocked_rows(_port_multi_passes(bg, tele, k, False), n).numpy()
+    assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+    assert (got.reshape(len(seeds), n_blocks, block).max(axis=2) > 0).all()
+
+
 def test_gs_pass_multi_checks_operands():
     _, bg = _blocked("rmat")
     b = 2

@@ -91,6 +91,142 @@ def test_spmv_csr_acc_matches_pallas_spmv_blocked(gname):
     assert torch.equal(got, plain)
 
 
+# ---------------------------------------------------------------------------
+# spmv_csr_acc's order on the card (csrc/spmv.cu), emulated step by step
+# ---------------------------------------------------------------------------
+
+CSR_THREADS, CSR_TILE, WARP = 256, 256 * 16, 32
+
+
+def merge_path_spmv(contrib, in_ptr, src, weights, ctas, f=np.float32):
+    """The CUDA ``spmv_csr_acc`` in dtype ``f``: ``ctas`` equal shares of
+    the merge path of row ends and edges, tiles of at most CSR_TILE items,
+    each thread's equal run summed in sequence (thread 0 continuing the row
+    its CTA's last tile left open), rows cut between threads joined by a
+    segmented Kogge–Stone scan in each warp and the warp totals in order,
+    and rows cut between CTAs by the CTAs' carries added in CTA order."""
+    n_rows, m = len(in_ptr) - 1, len(src)
+    val = contrib[src].astype(f)
+    if weights is not None:
+        val = (val * weights.astype(f)).astype(f)
+    ends = in_ptr[1:].astype(np.int64)
+    path_key = ends + np.arange(n_rows) + 1  # a row end's place on the path
+
+    def coord(d):  # rows ended and edges consumed at diagonal d
+        x = min(max(int(np.searchsorted(path_key, d, side="right")), d - m), n_rows)
+        return x, d - x
+
+    acc = np.zeros(n_rows, f)
+    total = n_rows + m
+    share = -(-total // ctas)
+    carry_rows, carry_vals = [], []
+    for c in range(ctas):
+        d0 = min(c * share, total)
+        d1 = min(d0 + share, total)
+        n_tiles = max(1, -(-(d1 - d0) // CSR_TILE))
+        tile_items = -(-(d1 - d0) // n_tiles)
+        carry_key, carry = -1, f(0)
+        for t in range(n_tiles):
+            t0 = min(d0 + t * tile_items, d1)
+            t1 = min(t0 + tile_items, d1)
+            x0 = coord(t0)[0]
+            ipt = -(-(t1 - t0) // CSR_THREADS)
+            keys = np.zeros(CSR_THREADS, np.int64)
+            runs = np.zeros(CSR_THREADS, f)
+            emitted = {}
+            for th in range(CSR_THREADS):
+                dt = min(th * ipt, t1 - t0)
+                x, y = coord(t0 + dt)
+                start = x
+                run = carry if th == 0 and carry_key == x0 else f(0)
+                for _ in range(dt, min(dt + ipt, t1 - t0)):
+                    if y < ends[x]:
+                        run = f(run + val[y])
+                        y += 1
+                    else:
+                        if start not in emitted:
+                            emitted[start] = (th, run)
+                        else:
+                            acc[x] = run
+                        run = f(0)
+                        x += 1
+                keys[th], runs[th] = x, run
+            # inclusive segmented scan within each warp (keys never decrease)
+            k = keys.reshape(-1, WARP)
+            v = runs.reshape(-1, WARP).copy()
+            for off in (1, 2, 4, 8, 16):
+                up_k = np.full_like(k, -1)
+                up_k[:, off:] = k[:, :-off]
+                up_v = np.zeros_like(v)
+                up_v[:, off:] = v[:, :-off]
+                v = np.where(up_k == k, (up_v + v).astype(f), v)
+            inc_v = v.reshape(-1)
+            pre_key, pre_val, pre = -1, f(0), []
+            for w in range(CSR_THREADS // WARP):  # warp totals joined in order
+                pre.append((pre_key, pre_val))
+                wk, wv = keys[w * WARP + WARP - 1], inc_v[w * WARP + WARP - 1]
+                pre_key, pre_val = (wk, f(pre_val + wv)) if wk == pre_key else (wk, wv)
+            full = inc_v.copy()
+            for th in range(CSR_THREADS):
+                pk, pv = pre[th // WARP]
+                if pk == keys[th]:
+                    full[th] = f(pv + inc_v[th])
+            for start, (th, first) in emitted.items():
+                ex_k, ex_v = pre[th // WARP] if th % WARP == 0 else (keys[th - 1], full[th - 1])
+                acc[start] = f(ex_v + first) if ex_k == start else first
+            carry_key, carry = keys[-1], full[-1]
+        carry_rows.append(carry_key)
+        carry_vals.append(carry)
+    for c, row in enumerate(carry_rows):
+        if 0 <= row < n_rows and (c == 0 or carry_rows[c - 1] != row):
+            s = carry_vals[c]
+            for k2 in range(c + 1, ctas):
+                if carry_rows[k2] != row:
+                    break
+                s = f(s + carry_vals[k2])
+            acc[row] = f(s + acc[row])
+    return acc
+
+
+def _hub_graph(n=30000, hub_in=25000, seed=0):
+    rng = np.random.default_rng(seed)
+    src = np.r_[np.arange(1, hub_in + 1), rng.integers(0, n, 3 * n)]
+    dst = np.r_[np.zeros(hub_in, np.int64), rng.integers(1, n, 3 * n)]
+    key = np.unique(src * n + dst)
+    return RefGraph.from_edges(n, key // n, key % n)
+
+
+# 132 SMs × 6 resident CTAs (one resident wave on the H100), and a grid so
+# small that each CTA walks several tiles
+@pytest.mark.parametrize("ctas", [792, 7])
+@pytest.mark.parametrize("weighted_graph", [False, True])
+def test_spmv_csr_acc_order_emulation_within_bound(ctas, weighted_graph):
+    """The CUDA kernel's order, emulated: in float64 it is every row's exact
+    sum (the split covers each edge once); in float32 every entry lies
+    within the 1e-5 bound of ``chip_smoke.py`` against the plain version, on
+    a hub of 25,000 in-edges carried across many CTAs."""
+    g = _hub_graph()
+    assert np.diff(g.in_ptr).max() >= 20000
+    if weighted_graph:
+        g = weighted(g, seed=2)
+    bg = BlockedGraph.build(port(g), block=256, device=CPU)
+    in_ptr, src = bg.in_ptr.numpy(), bg.src.numpy()
+    w = None if bg.weights is None else bg.weights.numpy()
+    rng = np.random.default_rng(3)
+    contrib = (rng.random(bg.vmask.numel()) * bg.vmask.reshape(-1).numpy()).astype(np.float32)
+    exact = merge_path_spmv(contrib.astype(np.float64), in_ptr, src,
+                            None if w is None else w.astype(np.float64), ctas, np.float64)
+    vals = contrib[src].astype(np.float64) * (1.0 if w is None else w)
+    want = np.zeros(len(in_ptr) - 1)
+    np.add.at(want, np.repeat(np.arange(len(in_ptr) - 1), np.diff(in_ptr)), vals)
+    assert np.abs(exact - want).max() <= 1e-12 * np.abs(want).max()
+    got = merge_path_spmv(contrib, in_ptr, src, w, ctas)
+    ref = spmv_csr_acc_ref(torch.as_tensor(contrib).reshape(bg.vmask.shape),
+                           bg.in_ptr, bg.src, bg.weights).reshape(-1).numpy()
+    scale = np.abs(ref) + np.abs(ref).mean()
+    assert (np.abs(got - ref) / scale).max() <= 1e-5
+
+
 def _port_passes(bg: BlockedGraph, k: int, handle_dangling: bool):
     n = bg.n
     pr = torch.full((bg.n_blocks, bg.block), 1.0 / n) * bg.vmask

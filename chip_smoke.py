@@ -218,25 +218,47 @@ def check_agreement(name: str, out, ref) -> tuple[float, float, float]:
     return err, rel, ent
 
 
+def weighted_graph(g):
+    """``g`` with edge weights in (0, 1] and vertex biases in [0.5, 1.5),
+    from a seeded generator: the weighted+biased graph of the kernel phase."""
+    from repro_torch.graphs import Graph
+
+    rng = np.random.default_rng(1)
+    return Graph.from_arrays(g.n, g.src, g.dst, g.out_degree, g.in_ptr,
+                             weights=1.0 - rng.random(g.m),  # in (0, 1]
+                             bias=rng.uniform(0.5, 1.5, g.n))
+
+
+def gs_inputs(graph, bg, rng, d=0.85):
+    """gs_pass's operands in the kernel phase, drawn from ``rng``: a random
+    state, a tenth of the real lanes frozen, and params with the state's
+    dangling mass.  Returns (pr, frozen, params)."""
+    dev = bg.vmask.device
+    n_pad = bg.n_blocks * bg.block
+    shape = (bg.n_blocks, bg.block)
+    pr = torch.as_tensor(rng.random(n_pad).astype(np.float32) / graph.n,
+                         device=dev).reshape(shape) * bg.vmask
+    frozen = torch.as_tensor(rng.random(n_pad) < 0.1,
+                             device=dev).reshape(shape) & (bg.vmask > 0)
+    dmass = d * float(torch.sum(pr * bg.dangling)) / graph.n
+    params = torch.tensor([(1 - d) / graph.n, d, dmass], dtype=torch.float32,
+                          device=dev)
+    return pr, frozen, params
+
+
 def kernel_phase(g, gw, dev):
     from repro_torch.kernels.spmv import (
         BlockedGraph, gs_pass, gs_pass_ref, spmv_csr_acc, spmv_csr_acc_ref,
     )
+    from repro_torch.kernels.spmv.kernel import gs_pass_plan
 
     rng = np.random.default_rng(0)
     stats = {"spmv_csr_acc": {}, "gs_pass": {}, "gs_pass_multi": {}}
-    d = 0.85
     for tag, graph in (("unweighted", g), ("weighted", gw)):
         bg = BlockedGraph.build(graph, block=256, device=dev)
         n_pad, m = bg.n_blocks * bg.block, graph.m
         shape = (bg.n_blocks, bg.block)
-        pr = torch.as_tensor(rng.random(n_pad).astype(np.float32) / graph.n,
-                             device=dev).reshape(shape) * bg.vmask
-        frozen = torch.as_tensor(rng.random(n_pad) < 0.1,
-                                 device=dev).reshape(shape) & (bg.vmask > 0)
-        dmass = d * float(torch.sum(pr * bg.dangling)) / graph.n
-        params = torch.tensor([(1 - d) / graph.n, d, dmass], dtype=torch.float32,
-                              device=dev)
+        pr, frozen, params = gs_inputs(graph, bg, rng)
         contrib = pr * bg.inv_out
         w_bytes = 0 if bg.weights is None else 4 * m
         csr_bytes = 4 * (n_pad + 1) + 4 * m + w_bytes
@@ -287,15 +309,16 @@ def kernel_phase(g, gw, dev):
               f"gs_pass ({tag}) moved a frozen lane")
         check(torch.equal(out, gs()), f"gs_pass ({tag}) not deterministic")
         ms, ms_by = device_ms(gs, 20)
+        k, stages = gs_pass_plan(bg.block, bg.weights is not None, dev)
         s = stats["gs_pass"][tag] = dict(
             max_abs_err=err, rel_err=rel,
             ms=ms, plain_ms=time_ms(gs_plain, 3, warmup=1), library_ms=None,
-            timed_by={"ms": ms_by, "plain_ms": "events"})
+            timed_by={"ms": ms_by, "plain_ms": "events"}, k=k, D=stages)
         rank_bytes = 4 * n_pad * (4 + (bg.bias is not None)) + n_pad + 12
         s["bound_ms"] = bound_ms(rank_bytes + csr_bytes)
         print(f"kernel gs_pass {tag}: max_abs_err={err:.3e} rel={rel:.3e} "
-              f"entry_rel={ent:.3e} (bound {KERNEL_RTOL:g}) ms={ms:.4f} "
-              f"(device, by {ms_by}) "
+              f"entry_rel={ent:.3e} (bound {KERNEL_RTOL:g}) k={k} D={stages} "
+              f"ms={ms:.4f} (device, by {ms_by}) "
               f"plain_ms={s['plain_ms']:.4f} library_ms=null "
               f"bound_ms={s['bound_ms']:.4f} (bytes; plus "
               f"{bg.n_blocks} dependent block steps per pass)", flush=True)
@@ -1125,7 +1148,7 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
-    from repro_torch.graphs import Graph, make_dataset
+    from repro_torch.graphs import make_dataset
     from repro_torch.kernels.flash_attention import build as flash_build
     from repro_torch.kernels.spmv import build as spmv_build
 
@@ -1151,10 +1174,7 @@ def main() -> int:
                   f"{info['ctas_per_sm']} CTAs an SM", flush=True)
 
     g = make_dataset("webStanford", scale_down=1)
-    rng = np.random.default_rng(1)
-    gw = Graph.from_arrays(g.n, g.src, g.dst, g.out_degree, g.in_ptr,
-                           weights=1.0 - rng.random(g.m),  # in (0, 1]
-                           bias=rng.uniform(0.5, 1.5, g.n))
+    gw = weighted_graph(g)
     print(f"data: webStanford surrogate n={g.n} m={g.m} "
           f"dangling={int((g.out_degree == 0).sum())}", flush=True)
 
@@ -1189,6 +1209,7 @@ def main() -> int:
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": s["library_ms"],
             "timed_by": s["timed_by"],
+            **({"k": s["k"], "D": s["D"]} if name == "gs_pass" else {}),
         })
     f = flash[(torch.bfloat16, None)]  # prefill's shape and dtype, causal
     kernels.append({

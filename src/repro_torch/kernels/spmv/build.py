@@ -29,8 +29,10 @@ def load(path: pathlib.Path | None = None) -> ctypes.CDLL:
     lib.spmv_csr_acc.restype = i
     lib.spmv_csr_acc_ctas.argtypes = [i]
     lib.spmv_csr_acc_ctas.restype = i
-    lib.gs_pass.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p]
+    lib.gs_pass.argtypes = [p] * 14 + [i] * 5 + [p]
     lib.gs_pass.restype = i
+    lib.gs_pass_plan.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.gs_pass_plan.restype = i
     lib.gs_pass_multi.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p, p, p,
                                   i, i, i, p]
     lib.gs_pass_multi.restype = i

@@ -12,7 +12,10 @@
 //   into equal shares, one per CTA of a grid that is resident at once, so a
 //   hub row costs as much as any other edges and no SM waits on one block.
 // * gs_pass (one blocked Gauss-Seidel pass) is one CTA walking the dst
-//   blocks in order; each block's sum is accumulate_block.
+//   blocks in order; the sources' values are gathered by helper CTAs on
+//   other SMs blocks ahead, the graph's streams and those values are copied
+//   into shared memory ahead by TMA, and a window of the last blocks
+//   committed fixes up the few values gathered before their source's commit.
 // * gs_pass_multi (the same pass over b PPR rows) gives each row a
 //   cluster of CTAs and spreads each block's vertices over it; each
 //   CTA's walk stages the next round of edges with cp.async while it sums
@@ -30,70 +33,8 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kChunk = 4096;         // edges staged in shared memory per round
-constexpr int kGsThreads = 1024;     // gs_pass: threads of the walking CTA
+constexpr int kChunk = 4096;         // edges summed per round of a block (the sum order's unit)
 constexpr int kChunkFloats = 32768;  // the parent order of gs_pass_multi: see multi_chunk_edges
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
-}
-
-// sm_acc[r] = sum over in-edges e of row v0 + r of x[src_e] * scale[src_e]
-// * w_e (scale and w optional).  Shared memory: sm_val[kChunk],
-// sm_acc[block], sm_ptr[block + 1].  Ends with a barrier, so sm_acc is
-// visible to every thread on return.  The block's edges [in_ptr[v0],
-// in_ptr[v0 + block)) are one contiguous range: every thread streams a
-// strided share of a chunk into shared memory, then each warp sums the
-// chunk slices of the rows it owns, lanes strided over the slice and a
-// fixed xor-shuffle tree across lanes, chunks added in order.  `x` may be
-// written by this CTA between calls (the Gauss-Seidel state), so it is read
-// with plain loads, never through the read-only cache.
-__device__ void accumulate_block(int v0, int block,
-                                 const int* __restrict__ in_ptr,
-                                 const int* __restrict__ src,
-                                 const float* __restrict__ weights,
-                                 const float* x,
-                                 const float* __restrict__ scale,
-                                 float* sm_val, float* sm_acc, int* sm_ptr) {
-  const int tid = threadIdx.x;
-  const int lane = tid % kWarp;
-  const int warp = tid / kWarp;
-  const int nwarps = blockDim.x / kWarp;
-  for (int i = tid; i <= block; i += blockDim.x) sm_ptr[i] = in_ptr[v0 + i];
-  for (int i = tid; i < block; i += blockDim.x) sm_acc[i] = 0.f;
-  __syncthreads();
-  const int e0 = sm_ptr[0];
-  const int e1 = sm_ptr[block];
-  for (int c0 = e0; c0 < e1; c0 += kChunk) {
-    const int c1 = min(c0 + kChunk, e1);
-    for (int e = c0 + tid; e < c1; e += blockDim.x) {
-      const int s = src[e];
-      float val = scale != nullptr ? x[s] * scale[s] : x[s];
-      if (weights != nullptr) val *= weights[e];
-      sm_val[e - c0] = val;
-    }
-    __syncthreads();
-    for (int r = warp; r < block; r += nwarps) {
-      const int lo = max(sm_ptr[r], c0);
-      const int hi = min(sm_ptr[r + 1], c1);
-      if (lo < hi) {  // uniform across the warp
-        float part = 0.f;
-        for (int e = lo + lane; e < hi; e += kWarp) part += sm_val[e - c0];
-        part = warp_sum(part);
-        if (lane == 0) sm_acc[r] += part;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-size_t smem_bytes(int block) {
-  return sizeof(float) * (kChunk + block) + sizeof(int) * (block + 1);
-}
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -357,48 +298,6 @@ int search_levels(int n_rows) {
     ++levels;
   }
   return levels;
-}
-
-// One blocked Gauss-Seidel pass, in place on `pr` (the caller passes a copy
-// of the previous ranks).  Replaces spmv_gs_pass (src/repro/kernels/spmv/
-// kernel.py).  A single CTA walks the dst blocks in order: it sums block db
-// from `pr` as it stands (blocks below db already hold this pass's values,
-// db and above the previous pass's), then, after the barrier that ends the
-// sum, commits
-//     new = (base * bias + dmass + d * acc) * vmask
-// with frozen lanes keeping their value, and a second barrier makes the
-// commit visible to the next block's gathers.  The epilogue uses
-// round-to-nearest intrinsics so it is not contracted into an FMA and
-// rounds as the plain version's separate torch ops do.
-__global__ void __launch_bounds__(kGsThreads)
-gs_pass_kernel(float* pr, const float* __restrict__ inv_out,
-               const float* __restrict__ vmask, const float* __restrict__ bias,
-               const uint8_t* __restrict__ frozen,
-               const float* __restrict__ params,
-               const int* __restrict__ in_ptr, const int* __restrict__ src,
-               const float* __restrict__ weights, int n_blocks, int block) {
-  extern __shared__ float smem[];
-  float* sm_val = smem;
-  float* sm_acc = smem + kChunk;
-  int* sm_ptr = reinterpret_cast<int*>(sm_acc + block);
-  const float base = params[0];
-  const float d = params[1];
-  const float dmass = params[2];
-  for (int db = 0; db < n_blocks; ++db) {
-    const int v0 = db * block;
-    accumulate_block(v0, block, in_ptr, src, weights, pr, inv_out,
-                     sm_val, sm_acc, sm_ptr);
-    for (int i = threadIdx.x; i < block; i += blockDim.x) {
-      const int v = v0 + i;
-      const float vm = vmask[v];
-      const float bz = bias != nullptr ? bias[v] : vm;
-      const float head = __fadd_rn(__fmul_rn(base, bz), dmass);
-      float next = __fmul_rn(__fadd_rn(head, __fmul_rn(d, sm_acc[i])), vm);
-      if (frozen != nullptr && frozen[v]) next = pr[v];
-      pr[v] = next;
-    }
-    __syncthreads();
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -891,6 +790,623 @@ gs_pass_multi_kernel(float* pr, float* q, const float* __restrict__ inv_out,
   cluster.sync();  // peers may still read this CTA's committed values
 }
 
+// ---------------------------------------------------------------------------
+// gs_pass: one blocked Gauss-Seidel pass, into `out` (a first kernel copies
+// `pr` there).  Block db sums from the state as it stands (blocks below db
+// at this pass's values, db and above at the previous pass's), then
+// commits
+//     new = (base * bias + dmass + d * acc) * vmask
+// with frozen lanes keeping their value.
+//
+// Replaces spmv_gs_pass (src/repro/kernels/spmv/kernel.py).  Bound: the
+// order, not bytes: block db must see every block below it committed, so a
+// pass is n_blocks dependent steps on one SM (a hand-off between SMs costs
+// more than a step); the bytes (the in-CSR and the rank-shaped operands
+// once, the ranks written once) are far below that.  Design: keep the
+// chain of commits on one SM, and move everything else off it.
+//
+// * One gather an edge.  The first kernel writes q = pr * inv_out beside
+//   the copy of pr, and one 16-byte record a vertex: its in_ptr entry (the
+//   sign bit set if it is frozen), head = base * bias + dmass (or, for a
+//   frozen vertex, its q), vmask and inv_out.  Each commit writes q[v] =
+//   new * inv_out[v], the product the sums would take.
+// * Items.  The walk goes through items, a block's edges in chunks of
+//   kChunk (a block of no edges is one empty item); the last item of a
+//   block commits it.
+// * The gathers run on other SMs, k blocks ahead.  One walker CTA and
+//   kHelpers helper CTAs are launched together.  A helper gathers vals[e] =
+//   q[src[e]] for the edges of block b from L2 once the walker has published
+//   that every block up to b - k is committed, then flags block b.  Scattered
+//   4-byte gathers issued on the walker's SM took its load/store unit about
+//   a cycle an edge, which every shared-memory access of the step then
+//   queued behind.
+// * Streams ahead by TMA.  In the walker, a producer thread copies each
+//   item's records and its src and weights ranges into a ring of D stream
+//   slots, D items ahead, with 1-D bulk copies onto an mbarrier (a range
+//   starts at any edge: its 16-byte aligned superset inside the array; the
+//   array's last few edges go by cp.async).  A loader thread, on no barrier
+//   of the walk, waits for each item's block flag and copies its vals
+//   range into a ring of kValueSlots value slots the same way.
+// * A window fixes up the rest.  A source in blocks (b - k, b) may have been
+//   committed after the helper read it: fix-up warps mark such edges while
+//   the item before is summed (and multiply in the edge weights), then give
+//   them the value from a window in shared memory that holds the q of the
+//   last k blocks committed.  A source in block b or above is uncommitted,
+//   so its gathered value is the previous pass's; one below is final.
+// * Roles and barriers.  Sum warps sum and commit item j while the fix-up
+//   warps prepare item j + 1 and the producer issues item j + D's streams;
+//   one barrier of the walk's warps ends the step (the commits are visible,
+//   the slots free), and a named barrier hands the fixed-up item to the sum
+//   warps.  Ring positions are counters (an integer division costs tens of
+//   instructions).
+// * The sum order is fixed, and gs_pass_multi's at b = 1: chunks of kChunk
+//   edges from the block's first edge; each row's slice of a chunk summed as one
+//   warp would, lanes strided 32 apart, then the fixed xor tree, the chunk
+//   sums added in order.  A row of at most 32 edges in the item is summed by
+//   a group of kGroup lanes, each holding every kGroup-th warp lane's value
+//   and taking the tree's upper levels itself, the lower ones by shuffles:
+//   the same tree; a longer slice takes the whole warp.  Products and the
+//   epilogue use round-to-nearest intrinsics: nothing is contracted, and the
+//   result is bit for bit the plain blocked order's.
+// ---------------------------------------------------------------------------
+
+constexpr int kGsThreads = 1024;  // every CTA of the launch
+constexpr int kHelpers = 16;      // helper CTAs beside the walker
+// the walker's warps: sum warps, fix-up warps, then one warp each for the
+// publisher, the producer and the loader
+constexpr int kSumWarps = 16;
+constexpr int kFixWarps = 13;
+constexpr int kFixThreads = kFixWarps * kWarp;
+constexpr int kStreamWaiter = kSumWarps * kWarp;        // a fix-up thread: waits on the rings
+constexpr int kPublisher = kGsThreads - 3 * kWarp;      // lane 0 of warp 29: the walk's progress
+constexpr int kProducer = kGsThreads - 2 * kWarp;       // lane 0 of warp 30: the streams
+constexpr int kLoader = kGsThreads - kWarp;             // warp 31: the gathered values
+constexpr int kStepThreads = kGsThreads - 2 * kWarp;    // the sum, fix-up and producer warps
+constexpr int kReadyThreads = (kSumWarps + kFixWarps) * kWarp;
+constexpr int kStepBarrier = 1;   // the walk's step: item j's commits are visible
+constexpr int kReadyBarrier = 2;  // fix-up warps to sum warps: the next item is fixed up
+constexpr int kFixBarrier = 3;    // among the fix-up warps
+constexpr int kGroup = 2;                    // lanes that sum a row of at most 32 edges
+constexpr int kGroupRows = kWarp / kGroup;   // rows a sum warp takes at once
+constexpr int kLeaves = kWarp / kGroup;      // a group lane's share of the 32 warp lanes
+constexpr int kValueSlots = 4;    // items whose gathered values are in shared memory
+constexpr int kMaxWindow = 8;     // k: blocks between a helper's gather and its block's sum
+constexpr int kMaxStages = 4;     // D: stream slots
+constexpr int kPtrMask = 0x7fffffff;  // a record's in_ptr entry; the sign bit marks frozen
+static_assert((kChunk + kFixThreads - 1) / kFixThreads <= 32,
+              "a fix-up thread marks its edges of an item in one 32-bit word");
+
+__host__ __device__ inline int round16(int bytes) { return (bytes + 15) / 16 * 16; }
+
+// Shared memory of the walker in bytes: D stream slots (records of block + 1
+// vertices, then src and weights of up to kChunk edges and their alignment
+// slack), kValueSlots slots of gathered values, the window of k blocks, the
+// accumulators of a block cut into chunks, the mbarriers (D stream slots;
+// values landed and freed, kValueSlots each) and the count of blocks
+// committed.
+struct GsLayout {
+  int src, w, slot, values, window, acc, bar, total;
+  __host__ __device__ GsLayout(int block, bool weighted, int k, int d_stages) {
+    const int edges = round16(4 * (kChunk + 8));
+    src = 16 * (block + 1);
+    w = src + edges;
+    slot = w + (weighted ? edges : 0);
+    values = d_stages * slot;
+    window = values + kValueSlots * edges;
+    acc = window + round16(4 * k * block);
+    bar = acc + round16(4 * block);
+    total = bar + round16(8 * (d_stages + 2 * kValueSlots + 1));
+  }
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// the mbarrier's arrival once every cp.async this thread issued has landed
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int ld_acquire_cta(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared::cta.s32 %0, [%1];\n" : "=r"(v) : "r"(smem_addr(p)) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_cta(int* p, int v) {
+  asm volatile("st.release.cta.shared::cta.s32 [%0], %1;\n" :: "r"(smem_addr(p)), "r"(v) : "memory");
+}
+
+// Named barriers of a subset of the CTA's warps: sync waits, arrive does not.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// p[i] += p[i + Off] for i < Off, then the next level down to p[0] += p[1].
+template <int Off, int W>
+__device__ __forceinline__ void fold(float (&p)[W]) {
+#pragma unroll
+  for (int i = 0; i < Off; ++i) p[i] = __fadd_rn(p[i], p[i + Off]);
+  if constexpr (Off > 1) fold<Off / 2>(p);
+}
+
+// The end of the item that starts at edge a0 of a block ending at e1.
+__device__ __forceinline__ int item_end(int a0, int e1) {
+  return min(a0 + kChunk, e1);
+}
+
+// A position in a ring of n slots and its mbarrier phase.
+struct Ring {
+  int slot = 0;
+  unsigned phase = 0;
+  __device__ void step(int n) {
+    if (++slot == n) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// The walk's items read from in_ptr: item (b, c) is chunk c of block b,
+// whose edges are [e0, e1); e2 = in_ptr at the block after, loaded a block
+// early.
+struct ItemCursor {
+  int b = 0, c = 0, e0 = 0, e1 = 0, e2 = 0;
+  __device__ void start(const int* in_ptr, int n_blocks, int block) {
+    e0 = in_ptr[0];
+    e1 = in_ptr[min(1, n_blocks) * block];
+    e2 = in_ptr[min(2, n_blocks) * block];
+  }
+  __device__ int a0() const { return e0 + c * kChunk; }
+  __device__ void step(const int* in_ptr, int n_blocks, int block) {
+    if (a0() + kChunk < e1) {
+      ++c;
+    } else {
+      ++b;
+      c = 0;
+      e0 = e1;
+      e1 = e2;
+      e2 = in_ptr[min(b + 2, n_blocks) * block];
+    }
+  }
+};
+
+// out = pr, q = pr * inv_out, and the records (n + 1 of them; the last
+// holds in_ptr[n]).
+__global__ void gs_prep_kernel(float* __restrict__ out, float* __restrict__ q,
+                               int4* __restrict__ rec, const float* __restrict__ pr,
+                               const float* __restrict__ inv_out,
+                               const float* __restrict__ vmask,
+                               const float* __restrict__ bias,
+                               const uint8_t* __restrict__ frozen,
+                               const float* __restrict__ params,
+                               const int* __restrict__ in_ptr, int n) {
+  const float base = params[0];
+  const float dmass = params[2];
+  for (int v = blockIdx.x * blockDim.x + threadIdx.x; v <= n; v += gridDim.x * blockDim.x) {
+    if (v == n) {
+      rec[n] = make_int4(in_ptr[n], 0, 0, 0);
+      break;
+    }
+    const float p = pr[v];
+    const float inv = inv_out[v];
+    const float vm = vmask[v];
+    const float bz = bias != nullptr ? bias[v] : vm;
+    const float qv = __fmul_rn(p, inv);
+    const bool fz = frozen != nullptr && frozen[v];
+    out[v] = p;
+    q[v] = qv;
+    const float head = __fadd_rn(__fmul_rn(base, bz), dmass);
+    rec[v] = make_int4(in_ptr[v] | (fz ? ~kPtrMask : 0), __float_as_int(fz ? qv : head),
+                       __float_as_int(vm), __float_as_int(inv));
+  }
+}
+
+// A helper CTA: blocks h, h + H, ... (h = blockIdx.x - 1, H helpers).  Once
+// the walker has committed every block up to b - k, vals[e] = q[src[e]] for
+// the edges of block b, read from L2 (never a stale L1 line); then the
+// block's flag.
+__device__ void gs_helper(const float* q, float* vals, int* sync, const int* __restrict__ src,
+                          const int* __restrict__ in_ptr, int n_blocks, int block, int k) {
+  const int* progress = sync + n_blocks;  // blocks the walker has committed
+  for (int b = blockIdx.x - 1; b < n_blocks; b += gridDim.x - 1) {
+    if (threadIdx.x == 0) {
+      while (ld_acquire(progress) < b - k + 1) {
+      }
+    }
+    __syncthreads();
+    const int e0 = __ldg(in_ptr + static_cast<size_t>(b) * block);
+    const int e1 = __ldg(in_ptr + static_cast<size_t>(b + 1) * block);
+    for (int e = e0 + threadIdx.x; e < e1; e += blockDim.x) vals[e] = __ldcg(q + __ldg(src + e));
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      st_release(sync + b, 1);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kGsThreads)
+gs_pass_kernel(float* out, float* q, const int4* __restrict__ rec,
+               const int* __restrict__ src, const float* __restrict__ weights,
+               const float* __restrict__ params, const int* __restrict__ in_ptr,
+               float* vals, int* sync, int n_blocks, int block, int m, int k,
+               int d_stages) {
+  if (blockIdx.x != 0) {
+    gs_helper(q, vals, sync, src, in_ptr, n_blocks, block, k);
+    return;
+  }
+  extern __shared__ __align__(16) unsigned char smem_gs[];
+  const GsLayout L(block, weights != nullptr, k, d_stages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_gs + L.bar);  // stream slots landed
+  uint64_t* vfull = full + d_stages;       // value slots landed
+  uint64_t* vfree = vfull + kValueSlots;   // value slots summed
+  int* committed = reinterpret_cast<int*>(vfree + kValueSlots);  // blocks committed
+  float* window = reinterpret_cast<float*>(smem_gs + L.window);
+  float* acc_s = reinterpret_cast<float*>(smem_gs + L.acc);
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  enum Role { kSumRole, kFixRole, kPublisherRole, kProducerRole, kLoaderRole };
+  const Role role = warp < kSumWarps ? kSumRole
+                    : warp < kSumWarps + kFixWarps ? kFixRole
+                    : warp == kPublisher / kWarp ? kPublisherRole
+                    : warp == kProducer / kWarp ? kProducerRole : kLoaderRole;
+  const int ftid = tid - kStreamWaiter;  // a fix-up thread's index
+  const float d = params[1];
+  const int k_block = k * block;
+  const unsigned w_span = static_cast<unsigned>((k - 1) * block);
+  int* progress = sync + n_blocks;
+  auto slot_rec = [&](int s) { return reinterpret_cast<int4*>(smem_gs + s * L.slot); };
+  auto slot_src = [&](int s) { return reinterpret_cast<int*>(smem_gs + s * L.slot + L.src); };
+  auto slot_w = [&](int s) { return reinterpret_cast<float*>(smem_gs + s * L.slot + L.w); };
+  auto slot_vals = [&](int v) {
+    return reinterpret_cast<float*>(smem_gs + L.values + v * (L.w - L.src));
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < d_stages; ++s) mbar_init(full + s, 1);
+    for (int s = 0; s < kValueSlots; ++s) {
+      mbar_init(vfull + s, 1);
+      mbar_init(vfree + s, 1);
+    }
+    *committed = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (role == kPublisherRole) {
+    // Each count of blocks committed that the walk leaves in shared memory,
+    // published to the helpers at the GPU's scope (the fence waits for the
+    // commits' stores), off the walk's barriers.
+    if (lane == 0) {
+      for (int done = 0; done < n_blocks;) {
+        const int c = ld_acquire_cta(committed);
+        if (c > done) {
+          __threadfence();
+          st_release(progress, c);
+          done = c;
+        } else {
+          __nanosleep(32);
+        }
+      }
+    }
+    return;
+  }
+
+  if (role == kLoaderRole) {
+    // The values of item i, once the helpers have flagged its block: vals
+    // [a0, a1) (the 16-byte aligned superset) into value slot i % kValueSlots,
+    // after the walk has summed the item that held the slot.  Items go in
+    // groups of kValueSlots, lane t taking item t of a group (slot t), so
+    // their waits overlap.
+    ItemCursor it;
+    it.start(in_ptr, n_blocks, block);
+    for (unsigned phase = 0, first = 1; it.b < n_blocks; phase ^= 1, first = 0) {
+      int b = n_blocks, a0 = 0, a1 = 0;
+      for (int t = 0; t < kValueSlots && it.b < n_blocks; ++t) {
+        if (lane == t) {
+          b = it.b;
+          a0 = it.a0();
+          a1 = item_end(a0, it.e1);
+        }
+        it.step(in_ptr, n_blocks, block);
+      }
+      if (b < n_blocks) {
+        if (!first) mbar_wait(vfree + lane, phase ^ 1);
+        while (ld_acquire(sync + b) == 0) {
+        }
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        const int lo4 = a0 & ~3;
+        const unsigned bytes = 4u * (((a1 + 3) & ~3) - lo4);
+        mbar_arrive_expect_tx(vfull + lane, bytes);
+        if (bytes > 0) bulk_copy(slot_vals(lane), vals + lo4, bytes, vfull + lane);
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // The producer: item p of the walk is the next whose streams to copy.
+  ItemCursor pit;
+  if (tid == kProducer) pit.start(in_ptr, n_blocks, block);
+  auto produce = [&](int s) {
+    const int a0 = pit.a0();
+    const int a1 = item_end(a0, pit.e1);
+    const int lo = a0 & ~3;
+    const int hi = max(lo, min((a1 + 3) & ~3, m & ~3));  // whole quads inside src
+    const unsigned rec_bytes = 16u * (block + 1);
+    const unsigned edge_bytes = 4u * (hi - lo);
+    uint64_t* bar = full + s;
+    const unsigned tx = rec_bytes + edge_bytes * (weights != nullptr ? 2 : 1);
+    const bool tail = a1 > hi;  // the array's last edges, past its last whole quad
+    if (tail) mbar_expect_tx(bar, tx); else mbar_arrive_expect_tx(bar, tx);
+    bulk_copy(slot_rec(s), rec + static_cast<size_t>(pit.b) * block, rec_bytes, bar);
+    if (hi > lo) {
+      bulk_copy(slot_src(s), src + lo, edge_bytes, bar);
+      if (weights != nullptr) bulk_copy(slot_w(s), weights + lo, edge_bytes, bar);
+    }
+    if (tail) {
+      for (int e = hi; e < a1; ++e) {
+        cp_async<4>(slot_src(s) + (e - lo), src + e);
+        if (weights != nullptr) cp_async<4>(slot_w(s) + (e - lo), weights + e);
+      }
+      cp_async_mbar_arrive(bar);
+    }
+    pit.step(in_ptr, n_blocks, block);
+  };
+
+  // The edges of the item in stream slot s: its block's end, and the item's
+  // range [a0, a1) from its chunk c.
+  struct Span {
+    int a0, a1, lo4, e1;
+  };
+  auto span = [&](int s, int c) {
+    const int4* rc = slot_rec(s);
+    Span sp;
+    sp.e1 = rc[block].x & kPtrMask;
+    sp.a0 = (rc[0].x & kPtrMask) + c * kChunk;
+    sp.a1 = item_end(sp.a0, sp.e1);
+    sp.lo4 = sp.a0 & ~3;
+    return sp;
+  };
+  // The fix-up of the item in stream slot s and value slot vs (block b,
+  // chunk c), in two passes over a fix-up thread's share of its edges
+  // (edge a0 + ftid + t * kFixThreads is bit t of the mask).  The first,
+  // once its values have landed, multiplies in each edge's weight and marks
+  // the edges whose source lies in blocks (b - k, b): committed after the
+  // helper's gather.  The second, once the blocks below b are committed,
+  // gives those edges the window's value (times the weight).  Block x's
+  // window slot is x % k; w_at is that of block b - k + 1.
+  auto fix_marks = [&](int s, int vs, int b, int c) {
+    const Span sp = span(s, c);
+    const int* sr = slot_src(s);
+    const float* wt = weights != nullptr ? slot_w(s) : nullptr;
+    float* gv = slot_vals(vs);
+    const unsigned w_lo = static_cast<unsigned>((b - k + 1) * block);
+    unsigned marks = 0;
+    for (int e = sp.a0 + ftid, t = 0; e < sp.a1; e += kFixThreads, ++t) {
+      const unsigned o = static_cast<unsigned>(sr[e - sp.lo4]) - w_lo;
+      if (o < w_span) {  // committed after its gather: the window's value
+        marks |= 1u << t;
+      } else if (wt != nullptr) {
+        gv[e - sp.lo4] = __fmul_rn(gv[e - sp.lo4], wt[e - sp.lo4]);
+      }
+    }
+    return marks;
+  };
+  auto fix_window = [&](int s, int vs, int b, int c, int w_at, unsigned marks) {
+    if (marks == 0) return;
+    const Span sp = span(s, c);
+    const int* sr = slot_src(s);
+    const float* wt = weights != nullptr ? slot_w(s) : nullptr;
+    float* gv = slot_vals(vs);
+    const unsigned w_lo = static_cast<unsigned>((b - k + 1) * block);
+    for (; marks != 0; marks &= marks - 1) {
+      const int e = sp.a0 + ftid + (__ffs(marks) - 1) * kFixThreads;
+      int at = static_cast<int>(static_cast<unsigned>(sr[e - sp.lo4]) - w_lo) + w_at;
+      if (at >= k_block) at -= k_block;
+      const float v = window[at];
+      gv[e - sp.lo4] = wt != nullptr ? __fmul_rn(v, wt[e - sp.lo4]) : v;
+    }
+  };
+  auto step_sync = [] { named_sync(kStepBarrier, kStepThreads); };
+  auto ready_sync = [] { named_sync(kReadyBarrier, kReadyThreads); };
+  auto ready_arrive = [] { named_arrive(kReadyBarrier, kReadyThreads); };
+  auto next = [](int x, int n) { return x + 1 == n ? 0 : x + 1; };
+
+  // Ring positions of item j (the one being summed), j + 1 and j + 2, in
+  // the stream slots (s0, s1, s2) and the value slots (v0, v1, v2).
+  Ring s0, s1, s2, v0, v1, v2;
+  s1.step(d_stages);
+  s2.step(d_stages);
+  s2.step(d_stages);
+  v1.step(kValueSlots);
+  v2.step(kValueSlots);
+  v2.step(kValueSlots);
+  int sb = 0, sc = 0;  // the item being summed: block sb, chunk sc
+  int wb = 0;          // its block's window slot, sb % k
+
+  // prologue: D items' streams; item 0 fixed up; items 0 and 1 landed
+  if (tid == kProducer) {
+    for (int s = 0; s < d_stages && pit.b < n_blocks; ++s) produce(s);
+  }
+  unsigned marks1 = 0;  // a fix-up thread's marks of item j + 1
+  if (role == kFixRole) {
+    if (tid == kStreamWaiter) {
+      mbar_wait(full, 0);
+      mbar_wait(vfull, 0);
+    }
+    named_sync(kFixBarrier, kFixThreads);
+    fix_window(0, 0, 0, 0, k > 1 ? block : 0, fix_marks(0, 0, 0, 0));
+    ready_arrive();
+    const Span sp0 = span(0, 0);
+    const bool last0 = sp0.a0 + kChunk >= sp0.e1;
+    if (!last0 || n_blocks > 1) {  // item 1
+      if (tid == kStreamWaiter) {
+        mbar_wait(full + s1.slot, s1.phase);
+        mbar_wait(vfull + v1.slot, v1.phase);
+      }
+      named_sync(kFixBarrier, kFixThreads);
+      marks1 = fix_marks(s1.slot, v1.slot, last0 ? 1 : 0, last0 ? 0 : 1);
+    }
+  }
+  step_sync();  // items 0 and 1's streams are visible to every warp of the walk
+
+  const int grp = lane / kGroup;  // the lane's row of the warp's kGroupRows
+  const int gl = lane % kGroup;   // its lane in the row's group
+  while (sb < n_blocks) {
+    const int4* rc = slot_rec(s0.slot);
+    const Span sp = span(s0.slot, sc);
+    const int a0 = sp.a0, a1 = sp.a1;
+    const bool first = sc == 0;
+    const bool last = a0 + kChunk >= sp.e1;
+    if (role == kSumRole) {
+      ready_sync();  // item j is fixed up
+      const float* gv = slot_vals(v0.slot) + (a0 - sp.lo4);
+      for (int r0 = warp * kGroupRows; r0 < block; r0 += kSumWarps * kGroupRows) {
+        const int r = r0 + grp;
+        int4 rv = make_int4(0, 0, 0, 0);  // the row's record, for its commit
+        int lo = 0, hi = 0;
+        if (r < block) {
+          rv = rc[r];
+          lo = max(rv.x & kPtrMask, a0);
+          hi = min(rc[r + 1].x & kPtrMask, a1);
+        }
+        const int n = max(hi - lo, 0);
+        // a slice of at most 32 edges: the group's tree, its leaves cut to
+        // the longest such slice of the warp
+        const int width = __reduce_max_sync(0xffffffffu, n <= kWarp ? n : 0);
+        float p[kLeaves];
+#pragma unroll
+        for (int i = 0; i < kLeaves; ++i) {
+          const int l = gl + kGroup * i;  // the warp lane whose value this leaf is
+          p[i] = i * kGroup < width && l < n ? __fadd_rn(0.f, gv[lo + l - a0]) : 0.f;
+        }
+        fold<kLeaves / 2>(p);  // the levels down to kGroup
+        float mine = p[0];
+#pragma unroll
+        for (int off = kGroup / 2; off > 0; off >>= 1) {  // the levels below kGroup
+          mine = __fadd_rn(mine, __shfl_xor_sync(0xffffffffu, mine, off));
+        }
+        // a longer slice: the warp's strided sums and xor tree, row by row
+        unsigned long_rows = __ballot_sync(0xffffffffu, gl == 0 && n > kWarp);
+        while (long_rows != 0) {
+          const int owner = __ffs(long_rows) - 1;
+          long_rows &= long_rows - 1;
+          const int olo = __shfl_sync(0xffffffffu, lo, owner);
+          const int ohi = __shfl_sync(0xffffffffu, hi, owner);
+          float part = 0.f;
+          for (int e = olo + lane; e < ohi; e += kWarp) part = __fadd_rn(part, gv[e - a0]);
+#pragma unroll
+          for (int off = kWarp / 2; off > 0; off >>= 1) {
+            part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, off));
+          }
+          if (grp == owner / kGroup) mine = part;
+        }
+        if (gl == 0 && r < block) {
+          const float a = __fadd_rn(first ? 0.f : acc_s[r], mine);
+          if (!last) {
+            acc_s[r] = a;
+          } else {
+            float qv = __int_as_float(rv.y);  // a frozen vertex keeps its value and q
+            if (rv.x >= 0) {
+              const float next_v = __fmul_rn(__fadd_rn(__int_as_float(rv.y), __fmul_rn(d, a)),
+                                             __int_as_float(rv.z));
+              qv = __fmul_rn(next_v, __int_as_float(rv.w));
+              const int v = sb * block + r;
+              out[v] = next_v;
+              q[v] = qv;
+            }
+            window[wb * block + r] = qv;
+          }
+        }
+      }
+    }
+    if (last) {
+      ++sb;
+      sc = 0;
+      wb = next(wb, k);
+    } else {
+      ++sc;
+    }
+    step_sync();  // item j's commits are visible, and its slots are free
+    if (role == kFixRole && sb < n_blocks) {
+      // item j + 1: the window now holds every block below it
+      fix_window(s1.slot, v1.slot, sb, sc, next(wb, k) * block, marks1);
+      ready_arrive();
+      // item j + 2, while item j + 1 is summed: its first pass
+      const Span sp1 = span(s1.slot, sc);
+      const bool last1 = sp1.a0 + kChunk >= sp1.e1;
+      if (!last1 || sb + 1 < n_blocks) {
+        if (tid == kStreamWaiter) {
+          mbar_wait(full + s2.slot, s2.phase);
+          mbar_wait(vfull + v2.slot, v2.phase);
+        }
+        named_sync(kFixBarrier, kFixThreads);
+        marks1 = fix_marks(s2.slot, v2.slot, last1 ? sb + 1 : sb, last1 ? 0 : sc + 1);
+      }
+    } else if (tid == kProducer) {
+      if (last) st_release_cta(committed, sb);  // for the publisher
+      mbar_arrive(vfree + v0.slot);  // item j's value slot may take item j + kValueSlots
+      if (pit.b < n_blocks) produce(s0.slot);
+    }
+    s0.step(d_stages);
+    s1.step(d_stages);
+    s2.step(d_stages);
+    v0.step(kValueSlots);
+    v1.step(kValueSlots);
+    v2.step(kValueSlots);
+  }
+}
+
 }  // namespace
 
 // The CTAs of one spmv_csr_acc launch on `device`: as many as are resident
@@ -924,18 +1440,53 @@ extern "C" int spmv_csr_acc(const float* contrib, const int* in_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int gs_pass(float* pr, const float* inv_out, const float* vmask,
-                       const float* bias, const uint8_t* frozen,
+// The stages of one gs_pass launch at `block`: k, the blocks between a
+// helper's gather and its block's sum (the window), and d stream slots, the
+// largest k, then the larger d, of those that fit into `smem_limit` bytes
+// of shared memory.  Returns the shared memory it takes, or 0 when not even
+// k = 2, d = 2 fits.
+extern "C" int gs_pass_plan(int block, int weighted, int smem_limit, int* k, int* d_stages) {
+  for (int kk = kMaxWindow; kk >= 2; --kk) {
+    for (int dd = kMaxStages; dd >= 2; --dd) {
+      const int bytes = GsLayout(block, weighted != 0, kk, dd).total;
+      if (bytes <= smem_limit) {
+        *k = kk;
+        *d_stages = dd;
+        return bytes;
+      }
+    }
+  }
+  return 0;
+}
+
+// `q` is scratch of n_blocks * block floats, `rec` of n_blocks * block + 1
+// 16-byte records, `vals` of (m + 7) & ~3 floats, `sync` n_blocks + 1 ints
+// set to 0; k and d_stages come from gs_pass_plan.  One walker CTA and
+// kHelpers helper CTAs, launched together (cooperatively: they wait on each
+// other).
+extern "C" int gs_pass(float* out, float* q, void* rec, const float* pr, const float* inv_out,
+                       const float* vmask, const float* bias, const uint8_t* frozen,
                        const float* params, const int* in_ptr, const int* src,
-                       const float* weights, int n_blocks, int block,
-                       cudaStream_t stream) {
-  const size_t bytes = smem_bytes(block);
-  cudaError_t err = allow_smem(gs_pass_kernel, bytes);
+                       const float* weights, float* vals, int* sync, int n_blocks, int block,
+                       int m, int k, int d_stages, cudaStream_t stream) {
+  if (k < 2 || k > kMaxWindow || d_stages < 2 || d_stages > kMaxStages) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = n_blocks * block;
+  const int grid = (n + 256) / 256 < 4096 ? (n + 256) / 256 : 4096;
+  int4* records = static_cast<int4*>(rec);
+  gs_prep_kernel<<<grid, 256, 0, stream>>>(out, q, records, pr, inv_out, vmask, bias, frozen,
+                                           params, in_ptr, n);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  gs_pass_kernel<<<1, kGsThreads, bytes, stream>>>(
-      pr, inv_out, vmask, bias, frozen, params, in_ptr, src, weights,
-      n_blocks, block);
-  return static_cast<int>(cudaGetLastError());
+  const size_t bytes = GsLayout(block, weights != nullptr, k, d_stages).total;
+  err = allow_smem(gs_pass_kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&out, &q, &records, &src, &weights, &params, &in_ptr, &vals, &sync,
+                  &n_blocks, &block, &m, &k, &d_stages};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gs_pass_kernel),
+                                    dim3(1 + kHelpers), dim3(kGsThreads), args, bytes, stream);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The shared memory one gs_pass_multi CTA needs without a cluster (its

@@ -16,6 +16,7 @@ float32 ``(n_blocks, block, b)``, vertex-major.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -27,8 +28,9 @@ from repro_torch.kernels.spmv.ref import (
     spmv_csr_acc_ref,
 )
 
-# gs_pass's shared memory per CTA is 4·(4096 + block) + 4·(block + 1)
-# bytes; this bound keeps it well inside the 227 KB a CTA may use.
+# The largest block any wrapper takes.  On the card gs_pass and
+# gs_pass_multi also check that their shared-memory staging at the block
+# fits into a CTA (gs_pass_plan, gs_pass_multi_max_batch).
 MAX_BLOCK = 16384
 # gs_pass_multi runs one cluster of CTAs a row; b is bounded here, and more
 # rows go through in chunks (gs_pass_multi_max_batch).  csrc/spmv.cu sizes a
@@ -162,14 +164,27 @@ def gs_pass(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
     whose sequential grid walks the dst-block tile runs with the whole rank
     state resident in VMEM.  Bound: the order — block ``db`` must read the
     commits of every block below it, so a pass is ``n_blocks`` dependent
-    steps, each a few global-memory latencies; the bytes (one read of the
-    in-CSR and the rank-shaped operands, one write of the ranks) are far
-    below that.  Design: a single persistent CTA of 1024 threads walks the
-    dst blocks in order; every thread stages a share of the block's
-    contiguous edge range in shared memory, one owner warp per row sums its
-    slice in a fixed order, and the block commits after a barrier; a second
-    barrier publishes the commit to the next block's gathers.  Exact and
-    deterministic, on one SM of 132."""
+    steps on one SM (a hand-off between SMs costs more than a step); the
+    bytes (one read of the in-CSR and the rank-shaped operands, one write of
+    the ranks) are far below that.  Design: the chain of block commits
+    stays on one walker CTA, and everything off it runs ahead.  A first
+    kernel writes ``q = pr·inv_out`` and one 16-byte record a vertex, and
+    each commit writes ``q`` beside ``pr``, so an edge is one gather.
+    Helper CTAs on other SMs gather ``q[src]`` of block ``b`` into a
+    per-edge array once the walker has published that every block up to
+    ``b − k`` is committed; the walker copies that array, each block's
+    records and its ``src`` and ``weights`` ranges (in chunks of 4,096
+    edges) into rings in shared memory with TMA bulk copies, and gives a
+    source in the ``k − 1`` blocks just below (committed after the
+    helper's gather) the value from a window of committed values.  ``k``
+    and the ``D`` stream slots are the largest that fit into a CTA's
+    shared memory at ``block`` (:func:`gs_pass_plan`); where not even one
+    stage fits, the call raises ``ValueError``.  The launch is cooperative,
+    as the CTAs wait on each other.  Sums keep the plain blocked order of
+    4,096-edge chunks, lanes strided 32 apart and a fixed xor tree
+    (``tests/test_torch_spmv.py::emulated_gs_pass``), so the result is bit
+    for bit :func:`gs_pass_multi`'s at ``b = 1``.  Deterministic, no
+    atomics."""
     n_blocks, block = _check_graph(pr, in_ptr, src, weights)
     dev = pr.device
     for name, t in (("pr", pr), ("inv_out", inv_out), ("vmask", vmask),
@@ -188,6 +203,31 @@ def gs_pass(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _gs_plan(lib, block: int, weighted: bool, smem: int) -> tuple[int, int]:
+    k, d_stages = ctypes.c_int(), ctypes.c_int()
+    if lib.gs_pass_plan(block, int(weighted), smem, ctypes.byref(k),
+                        ctypes.byref(d_stages)) <= 0:
+        raise ValueError(f"gs_pass: block={block} leaves no room for one stage of "
+                         f"its ring in the {smem} B of shared memory a CTA may use")
+    return k.value, d_stages.value
+
+
+def gs_pass_plan(block: int, weighted: bool, device: torch.device,
+                 lib=None) -> tuple[int, int]:
+    """``(k, D)`` of a :func:`gs_pass` launch at ``block`` on the CUDA
+    ``device``: ``k`` blocks between the helpers' gather of a block and its
+    sum (the window of committed values holds ``k`` blocks), ``D`` stream
+    slots, the largest that fit into a CTA's shared memory as the built
+    library (or ``lib``) lays it out.  Raises ``ValueError`` where not even
+    ``k = 2, D = 2`` fits."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"gs_pass_plan describes a launch on the card, not {device}")
+    lib = build.load() if lib is None else lib
+    return _gs_plan(lib, block, bool(weighted), _smem_per_block(lib, device))
+
+
 def launch_gs_pass(lib, pr: torch.Tensor, inv_out: torch.Tensor,
                    vmask: torch.Tensor, params: torch.Tensor,
                    in_ptr: torch.Tensor, src: torch.Tensor,
@@ -195,19 +235,30 @@ def launch_gs_pass(lib, pr: torch.Tensor, inv_out: torch.Tensor,
                    frozen: torch.Tensor | None) -> torch.Tensor:
     """Launch ``gs_pass`` of the loaded library ``lib`` on CUDA operands
     that :func:`gs_pass` has checked and found not empty, without counting
-    it; ``scripts/spmv_ablation.py`` launches copies of the source this
-    way."""
+    it, with the stages of :func:`gs_pass_plan`; ``scripts/spmv_ablation.py``
+    launches copies of the source this way."""
     n_blocks, block = pr.shape
     dev = pr.device
+    k, d_stages = gs_pass_plan(block, weights is not None, dev, lib)
+    for name, t in (("src", src), ("weights", weights)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"gs_pass copies {name} in 16-byte units: it must "
+                             f"start on a 16-byte boundary")
+    m = src.numel()
     out = torch.empty_like(pr)
-    out.copy_(pr)
+    scaled = torch.empty_like(pr)  # pr · inv_out, written by each commit
+    records = torch.empty((n_blocks * block + 1, 4), dtype=torch.int32, device=dev)
+    vals = torch.empty(((m + 7) & ~3,), dtype=torch.float32, device=dev)  # q[src], by edge
+    sync = torch.zeros(n_blocks + 1, dtype=torch.int32, device=dev)  # block flags, progress
     err = lib.gs_pass(
-        out.data_ptr(), inv_out.data_ptr(), vmask.data_ptr(),
+        out.data_ptr(), scaled.data_ptr(), records.data_ptr(), pr.data_ptr(),
+        inv_out.data_ptr(), vmask.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if frozen is None else frozen.data_ptr(),
         params.data_ptr(), in_ptr.data_ptr(), src.data_ptr(),
         None if weights is None else weights.data_ptr(),
-        n_blocks, block, torch.cuda.current_stream(dev).cuda_stream)
+        vals.data_ptr(), sync.data_ptr(), n_blocks, block, m, k, d_stages,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "gs_pass")
     return out
 
@@ -217,7 +268,7 @@ def _smem_per_block(lib, dev: torch.device) -> int:
     (``cuda`` with no index is the current card)."""
     have = lib.smem_per_block_optin(_device_index(dev))
     if have < 0:
-        _raise_on(-have, "gs_pass_multi")
+        _raise_on(-have, "smem_per_block_optin")
     return have
 
 

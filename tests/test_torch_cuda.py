@@ -72,7 +72,7 @@ def _graphs():
     dst = np.r_[np.zeros(n - 1, np.int64), rng.integers(0, n, 3 * n)]
     key = np.unique(src * n + dst)
     hub = Graph.from_edges(n, key // n, key % n)
-    return {"rmat": g, "rmat_weighted": weighted, "hub": hub}
+    return {"rmat": g, "rmat_weighted": weighted, "hub": hub, "chain": _chain(256)}
 
 
 def _rel_err(out, ref) -> float:
@@ -154,6 +154,27 @@ def _chain(block, n_blocks=12):
     src = np.r_[v - block, (v - block + 1) % block + (v // block - 1) * block]
     dst = np.r_[v, v]
     return Graph.from_edges(n, src, dst)
+
+
+@pytest.mark.parametrize("block", [64, 256])
+def test_gs_pass_reads_the_block_just_committed(cuda, block):
+    """Every edge of the chain comes from the block just below, which the
+    helpers gathered before it committed: each must take the committed
+    value from the kernel's window."""
+    g = _chain(block)
+    bg = BlockedGraph.build(g, block=block, device=cuda)
+    pr = torch.zeros_like(bg.vmask)
+    params = torch.tensor([1.0, 0.85, 0.0], device=cuda)
+    args = (bg.inv_out, bg.vmask, params, bg.in_ptr, bg.src, bg.weights)
+    out = gs_pass(pr, *args)
+    ref = gs_pass_ref(pr, *args)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= RTOL
+    # a block that read the block below before its commit would read the
+    # previous pass's zeros and commit the base, 1: far outside the bound
+    stale = torch.ones_like(ref)
+    scale = ref.abs() + ref.abs().mean()
+    assert float(((ref - stale).abs() / scale)[1:].min()) > 100 * RTOL
 
 
 @pytest.mark.parametrize("b", [1, 8, 64])
@@ -313,7 +334,7 @@ def test_gs_pass_multi_matches_plain(cuda, gname, block, b):
     assert torch.equal(out, gs_pass_multi(pr, *args))
 
 
-@pytest.mark.parametrize("gname", ["rmat", "rmat_weighted", "hub"])
+@pytest.mark.parametrize("gname", ["rmat", "rmat_weighted", "hub", "chain"])
 def test_gs_pass_multi_b1_is_gs_pass_on_card(cuda, gname):
     g = _graphs()[gname]
     bg = BlockedGraph.build(g, block=256, device=cuda)
@@ -345,6 +366,44 @@ def test_gs_pass_multi_rejects_what_does_not_fit(cuda):
         else:
             with pytest.raises(ValueError, match="shared memory"):
                 gs_pass_multi(*args)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gs_pass_rejects_what_does_not_fit(cuda, weighted):
+    """At the largest block whose ring fits into a CTA's shared memory
+    (found through gs_pass_plan) gs_pass launches and matches its plain
+    version; one row more raises ValueError before any launch."""
+    from repro_torch.kernels.spmv.kernel import MAX_BLOCK, gs_pass_plan
+
+    def fits(block):
+        try:
+            gs_pass_plan(block, weighted, cuda)
+        except ValueError:
+            return False
+        return True
+
+    lo, hi = 1, MAX_BLOCK  # fits(lo); the largest block that fits is in [lo, hi]
+    assert fits(lo) and not fits(hi)
+    while lo + 1 < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    g = _graphs()["rmat_weighted" if weighted else "rmat"]
+    for block, ok in ((lo, True), (lo + 1, False)):
+        bg = BlockedGraph.build(g, block=block, device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(block)
+        pr = torch.rand(bg.vmask.shape, generator=gen, device=cuda) * bg.vmask / g.n
+        params = torch.tensor([0.15 / g.n, 0.85, 0.0], device=cuda)
+        args = (pr, bg.inv_out, bg.vmask, params, bg.in_ptr, bg.src, bg.weights, bg.bias)
+        reset_launch_counts()
+        if ok:
+            out = gs_pass(*args)
+            torch.cuda.synchronize()
+            assert _rel_err(out, gs_pass_ref(*args)) <= RTOL
+            assert launch_counts()["gs_pass"] == 1
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                gs_pass(*args)
+            assert launch_counts()["gs_pass"] == 0
 
 
 @pytest.mark.parametrize("handle_dangling", [False, True])

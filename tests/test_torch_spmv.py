@@ -13,6 +13,14 @@ plain versions), held against the JAX reference on the same numpy inputs.
   error ≤ 1e-6 × max|pr| after 1 and 3 passes.
 * the freeze mask against a float64 numpy blocked Gauss–Seidel pass
   written here.
+* ``gs_pass``'s order on the card, emulated in float32 numpy: the plain
+  blocked order (4,096-edge chunks, lanes strided 32 apart, the warp's xor
+  tree, chunk sums in order) and the kernel's schedule (each block's values
+  gathered once every block up to k below it is committed, the sources in
+  the k − 1 blocks below it taken from the window of committed values).
+  The schedule must equal the plain blocked order bit for bit and
+  ``gs_pass_ref`` within 1e-5·(|ref| + mean|ref|) in every entry; without
+  the window it must miss that bound on a chain.
 """
 import jax  # noqa: F401
 import numpy as np
@@ -379,3 +387,173 @@ def test_build_surfaces_compiler_errors(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         build.build()
     assert list(tmp_path.iterdir()) == []  # no half-built library left behind
+
+
+# ---------------------------------------------------------------------------
+# gs_pass's order on the card (csrc/spmv.cu), emulated step by step
+# ---------------------------------------------------------------------------
+
+CHUNK = 4096
+
+
+def _chain(block, n_blocks=12):
+    """Each row of block k + 1 takes its two in-edges from rows of block k,
+    so a Gauss-Seidel pass carries every value one block a step: every
+    edge's source is committed just before its block is summed."""
+    n = block * n_blocks
+    v = np.arange(block, n)
+    src = np.r_[v - block, (v - block + 1) % block + (v // block - 1) * block]
+    return RefGraph.from_edges(n, src, np.r_[v, v])
+
+
+def warp_order_sums(vals, starts, ends, c0):
+    """Each row's slice [starts, ends) of a chunk starting at edge c0, summed
+    as one warp sums it: lane l adds the slice's edges l, l + 32, ...
+    (from 0), then the xor tree's levels 16 .. 1 as lane 0 sees them."""
+    f = np.float32
+    rows = len(starts)
+    lanes = np.zeros((rows, WARP), f)
+    n = np.maximum(ends - starts, 0)
+    if n.sum():
+        row = np.repeat(np.arange(rows), n)
+        off = np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)
+        val = vals[np.repeat(starts - c0, n) + off]
+        for rnd in range(int(off.max()) // WARP + 1):
+            sel = off // WARP == rnd  # one edge per (row, lane) a round
+            lanes[row[sel], off[sel] % WARP] = (lanes[row[sel], off[sel] % WARP]
+                                                + val[sel]).astype(f)
+    for lvl in (16, 8, 4, 2, 1):
+        lanes[:, :lvl] = (lanes[:, :lvl] + lanes[:, lvl:2 * lvl]).astype(f)
+    return lanes[:, 0]
+
+
+def emulated_gs_pass(bg, pr, params, frozen=None, k=None, window=True):
+    """One pass in float32 in the kernel's order.  ``k`` None: each block
+    reads the state as it stands (the plain blocked order).  Otherwise each
+    block's values are gathered from q = pr·inv_out as it stood once block
+    b − k was committed, and (``window``) the sources in blocks (b − k, b)
+    are read from the committed values instead."""
+    f = np.float32
+    block = bg.block
+    ptr = bg.in_ptr.numpy().astype(np.int64)
+    src = bg.src.numpy().astype(np.int64)
+    w = None if bg.weights is None else bg.weights.numpy()
+    inv = bg.inv_out.numpy().reshape(-1)
+    vm = bg.vmask.numpy().reshape(-1)
+    bz = vm if bg.bias is None else bg.bias.numpy().reshape(-1)
+    fz = np.zeros_like(vm, bool) if frozen is None else frozen.reshape(-1)
+    base, d, dmass = (f(x) for x in params)
+    out = pr.reshape(-1).astype(f).copy()
+    q = (out * inv).astype(f)
+    head = ((base * bz).astype(f) + dmass).astype(f)
+    snaps = [q.copy()]  # snaps[i]: q once blocks below i are committed
+    for b in range(bg.n_blocks):
+        v0, v1 = b * block, (b + 1) * block
+        e0, e1 = ptr[v0], ptr[v1]
+        s = src[e0:e1]
+        if k is None:
+            vals = q[s]
+        else:
+            vals = snaps[max(b - k + 1, 0)][s].copy()
+            if window:
+                fix = (s >= (b - k + 1) * block) & (s < v0)
+                vals[fix] = q[s[fix]]
+        if w is not None:
+            vals = (vals * w[e0:e1]).astype(f)
+        acc = np.zeros(block, f)
+        for c0 in range(e0, max(e1, e0 + 1), CHUNK):
+            c1 = min(c0 + CHUNK, e1)
+            lo = np.clip(ptr[v0:v1], c0, c1)
+            hi = np.clip(ptr[v0 + 1:v1 + 1], c0, c1)
+            acc = (acc + warp_order_sums(vals, lo - e0, hi - e0, 0)).astype(f)
+        new = (((head[v0:v1] + (d * acc).astype(f)).astype(f)) * vm[v0:v1]).astype(f)
+        keep = fz[v0:v1]
+        out[v0:v1] = np.where(keep, out[v0:v1], new)
+        q[v0:v1] = np.where(keep, q[v0:v1], (out[v0:v1] * inv[v0:v1]).astype(f))
+        snaps.append(q.copy())
+    return out.reshape(pr.shape)
+
+
+def _emulation_case(name):
+    """(blocked graph, pr, params, frozen) of an emulation case: the chain
+    and the hub at block 256, an rmat graph (weighted and biased, or with a
+    third of its lanes frozen) at block 64."""
+    rng = np.random.default_rng(7)
+    block = 256
+    if name == "chain":
+        g = _chain(256)
+    elif name == "hub":
+        g = _hub_graph()
+    else:
+        g = ref_rmat_graph(10, avg_degree=8, seed=4)
+        g = weighted(g, seed=5) if name == "rmat_weighted" else g
+        block = 64
+    bg = BlockedGraph.build(port(g), block=block, device=CPU)
+    n_pad = bg.n_blocks * bg.block
+    live = np.arange(n_pad) < g.n
+    pr = (rng.random(n_pad) / g.n * live).astype(np.float32).reshape(bg.n_blocks, bg.block)
+    frozen = ((rng.random(n_pad) < 0.3) & live).reshape(pr.shape) if name == "frozen" else None
+    params = np.asarray([(1 - D) / g.n, D, 0.2 * D / g.n], np.float32)
+    return bg, pr, params, frozen
+
+
+def _entry_ratio(got, ref):
+    scale = np.abs(ref) + np.abs(ref).mean()
+    return float((np.abs(got - ref) / scale).max()) / 1e-5
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("name", ["chain", "hub", "rmat_weighted", "frozen"])
+def test_gs_pass_schedule_emulation_is_the_plain_order(name, k):
+    """The kernel's schedule, values gathered k blocks ahead and fixed up
+    from the window, equals the plain blocked order bit for bit and the
+    plain version within the kernel bound."""
+    bg, pr, params, frozen = _emulation_case(name)
+    if name == "hub":  # a block of several chunks, rows cut between them
+        assert np.diff(bg.in_ptr.numpy()[::bg.block]).max() > 4 * CHUNK
+    plain_order = emulated_gs_pass(bg, pr, params, frozen)
+    got = emulated_gs_pass(bg, pr, params, frozen, k=k)
+    assert np.array_equal(got, plain_order)
+    ref = gs_pass_ref(torch.as_tensor(pr), bg.inv_out, bg.vmask, torch.as_tensor(params),
+                      bg.in_ptr, bg.src, bg.weights, bg.bias,
+                      None if frozen is None else torch.as_tensor(frozen)).numpy()
+    assert _entry_ratio(got, ref) <= 1.0
+    if frozen is not None:
+        assert np.array_equal(got[frozen], pr[frozen])
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_gs_pass_schedule_emulation_needs_the_window(k):
+    """Without the window every edge of the chain reads its source from
+    before the commit of the block just below: far outside the bound."""
+    bg, pr, params, frozen = _emulation_case("chain")
+    ref = gs_pass_ref(torch.as_tensor(pr), bg.inv_out, bg.vmask, torch.as_tensor(params),
+                      bg.in_ptr, bg.src).numpy()
+    assert _entry_ratio(emulated_gs_pass(bg, pr, params, k=k), ref) <= 1.0
+    assert _entry_ratio(emulated_gs_pass(bg, pr, params, k=k, window=False), ref) > 100.0
+
+
+@pytest.mark.parametrize("group", [2, 4, 8])
+def test_group_lanes_take_the_warp_xor_tree(group):
+    """A row of at most 32 values summed by ``group`` lanes, each holding
+    every group-th warp lane's value and taking the tree's levels down to
+    ``group`` itself, the rest across the group (csrc/spmv.cu, kGroup): the
+    warp's xor tree bit for bit."""
+    f = np.float32
+    rng = np.random.default_rng(group)
+    for n in range(33):
+        vals = (rng.random(n) * 10.0 ** rng.integers(-8, 2, n)).astype(f)
+        warp = warp_order_sums(vals, np.array([0]), np.array([n]), 0)[0]
+        p = np.zeros((group, WARP // group), f)  # p[g, i]: warp lane g + group * i
+        for lane in range(n):
+            p[lane % group, lane // group] = (f(0) + vals[lane]).astype(f)
+        width = WARP // group
+        while width > 1:  # levels 16 .. group, within each group lane
+            width //= 2
+            p[:, :width] = (p[:, :width] + p[:, width:2 * width]).astype(f)
+        x = p[:, 0].copy()
+        lvl = group // 2
+        while lvl >= 1:  # levels below group, across the group's lanes
+            x = (x + x[np.arange(group) ^ lvl]).astype(f)
+            lvl //= 2
+        assert np.array_equal(x, np.full(group, warp, f))

@@ -22,20 +22,41 @@ Phases, one or more lines each; any failure exits non-zero:
                one, and beside its bound from the H100's 3.35 TB/s
                (gs_pass_multi at b = 8 rows from make_query_stream, some
                frozen, and its b = 1 identity with gs_pass; then at b = 64,
-               and a pass of 65 rows in two launches, timed);
+               and a pass of 65 rows in two launches, timed); gs_pass under
+               whole-block freezes, the masks the adaptive schedule gives
+               it (none, a random half, all but the first or the last
+               block, alternating runs of 1 and 9 frozen blocks, all),
+               each against its plain version, frozen lanes bit for bit
+               the input;
 4. solve    — the launcher's solve path (repro_torch.launch.pagerank_run)
                at full size with --handle-dangling for blocked,
-               blocked_nosync, blocked_nosync_opt, nosync and barrier, with
-               launch counts and L1 to the float64 oracle; then Fig 7
-               (no-sync needs no more iterations than barrier) on the
-               paper's setting, without dangling redistribution;
-5. repeat   — barrier, nosync and blocked solved twice at full size must
-               give the same iterations and ranks, and the residual curve
-               of barrier, blocked and blocked_nosync run past the
-               threshold shows how far 1e-8 sits above the float32 floor;
-6. profile  — one traced solve of blocked, blocked_nosync and ppr_blocked
-               (8 rows): device time by kernel and the device's busy share;
-7. ppr      — batched PPR at full size, 8 seed rows from
+               blocked_nosync, blocked_nosync_opt, blocked_adaptive,
+               nosync, nosync_adaptive, barrier, barrier_edge and
+               barrier_identical, with launch counts and L1 to the float64
+               oracle (barrier_edge and barrier_identical within one
+               iteration of barrier); then Fig 7 (no-sync needs no more
+               iterations than barrier) on the paper's setting, without
+               dangling redistribution;
+5. adaptive — on the BFS-reordered surrogate (compute_order "bfs"):
+               gs_pass under the kernel phase's whole-block masks on its
+               block and edge structure; with dangling redistribution on
+               and off, blocked_nosync against blocked_adaptive (passes,
+               block sweeps, the share of blocks frozen per pass, one
+               gs_pass a pass, L1, wall; a second blocked_adaptive solve
+               holds each pass against gs_pass_ref under the masks its
+               schedule gave) and nosync against nosync_adaptive at 56
+               threads, every run's float64 residual at or below the
+               threshold;
+6. repeat   — barrier, nosync and blocked solved twice at full size, and
+               blocked_adaptive and nosync_adaptive on the BFS-reordered
+               graph, must give the same iterations, sweeps and ranks, and
+               the residual curve of barrier, blocked and blocked_nosync
+               run past the threshold shows how far 1e-8 sits above the
+               float32 floor;
+7. profile  — one traced solve of blocked, blocked_nosync, blocked_adaptive
+               (also on the BFS-reordered graph) and ppr_blocked (8
+               rows): device time by kernel and the device's busy share;
+8. ppr      — batched PPR at full size, 8 seed rows from
                make_query_stream(n, 8, seed=0), --handle-dangling,
                threshold 1e-8: ppr_blocked (the gs_pass_multi main path),
                ppr_barrier and ppr_nosync, each row within L1 1e-4 of a
@@ -43,11 +64,11 @@ Phases, one or more lines each; any failure exits non-zero:
                global blocked fixed point; two ppr_blocked solves repeat;
                ppr_blocked at 65 rows, more than one launch takes, in
                chunks of rows, each row against the oracle;
-8. engine   — PPREngine on the kernel backend, 8 slots, the 32 queries of
+9. engine   — PPREngine on the kernel backend, 8 slots, the 32 queries of
                make_query_stream(n, 32, seed=0) at threshold 1e-6: every
                top-k is the oracle's, q/s and latency; the torch backend
                answers with the same top-k;
-9. flash    — flash_attention against its plain version over the
+10. flash   — flash_attention against its plain version over the
                reference's test matrix (f32/bf16 x 3 head layouts x
                causal / window 64 / full, s 256, dh 64), ragged and
                sq != sk lengths, and qwen2-vl-2b's shape (b 2, hq 12,
@@ -56,14 +77,14 @@ Phases, one or more lines each; any failure exits non-zero:
                float32 plain result rounded to bf16; times beside the plain version, SDPA
                and the bound (and, in bf16, the floor of the kernel's own
                tensor-core work: P·V as P_TERMS bf16 products);
-10. prefill — qwen2-vl-2b at full width (1.54 B parameters, bf16, random
+11. prefill — qwen2-vl-2b at full width (1.54 B parameters, bf16, random
                from a seeded generator): forward at b 2, s 4096 launches
                the kernel once per layer (the main path); tokens/s over
                three runs, the trace; f32 kernel route against the plain
                route entry-wise; bf16 routes against the f32 forward;
-11. decode  — 128 teacher-forced f32 decode steps against the prefill's
+12. decode  — 128 teacher-forced f32 decode steps against the prefill's
                logits, ms per step (no kernel on this path);
-12. serve   — repro_torch.launch.serve --preset full: every request
+13. serve   — repro_torch.launch.serve --preset full: every request
                finishes (no kernel on this path); then the same requests
                and loop in float32 on the decode phase's weights, every
                token the engine picks held against forward's argmax over
@@ -76,6 +97,7 @@ sources beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -100,6 +122,54 @@ FLOOR_ITERS = 150  # solves run past the threshold to find the float32 floor
 # graphs of ≤ 256 vertices; float32 rank error grows with n.
 L1_BOUND = {"blocked_nosync_opt": 1e-3}
 L1_DEFAULT = 1e-4
+# The adaptive schedules stop a unit once its certified residual bound is
+# at or below threshold / 2, and the solve once every unit's last change
+# (swept) or bound (skipped) is at or below threshold.  The certificate is
+# in max norm: it leaves room for a residual of up to threshold / 2 at
+# every vertex a skipped unit holds, so L1 to the fixed point up to
+# n · threshold / (2 (1 - d)) (the L1 error is at most the residual's L1
+# over 1 - d).  With dangling redistribution those residuals share one
+# sign (the dangling mass a skipped block last saw), so the L1 grows with
+# n, in the reference as in the port
+# (tests/test_torch_adaptive.py::test_adaptive_dangling_l1_is_the_references
+# and ::test_blocked_adaptive_dangling_l1_is_the_references); at full size
+# it exceeds L1_DEFAULT, and the adaptive phase holds those two runs to
+# this allowance, beside the per-vertex check of residual_allowance.
+def adaptive_l1_bound(n: int, d: float = 0.85) -> float:
+    return n * SOLVE_THRESHOLD / (2 * (1 - d))
+
+
+def residual_allowance(g, pr, dangling: bool, d: float = 0.85) -> np.ndarray:
+    """What the stop rule certifies about the residual each vertex keeps:
+    its unit's bound before the last pass (0 if swept, at most threshold / 2
+    if skipped) plus the last pass's changes of its in-neighbours, each at
+    most threshold, moving it by at most d · threshold · G_v, where G_v =
+    Σ_{u→v} 1/outdeg(u) (+ the dangling count / n with redistribution) is
+    the row sum of the vertex gain.  So threshold · (1/2 + d · G_v), which
+    holds for the plain Gauss–Seidel schedules too (their first term is
+    0).  On top, a pass's float32 sums may leave each rank KERNEL_RTOL ·
+    (|rank| + the mean |rank|) from the exact pass, the kernel's entry
+    bound."""
+    pr = np.abs(np.asarray(pr, np.float64))
+    inv = np.where(g.out_degree > 0, 1.0 / np.maximum(g.out_degree, 1), 0.0)
+    gv = np.bincount(g.dst, weights=inv[g.src], minlength=g.n)
+    if dangling:
+        gv += np.count_nonzero(g.out_degree == 0) / g.n
+    return (SOLVE_THRESHOLD * (0.5 + d * gv)
+            + KERNEL_RTOL * (pr + pr.mean()))
+
+
+def jacobi_residual(g, pr, dangling: bool, d: float = 0.85) -> np.ndarray:
+    """One float64 Jacobi step of ``pr`` minus ``pr``: the residual a
+    solve leaves; the L1 error to the fixed point is at most its L1 over
+    1 - d."""
+    pr = np.asarray(pr, np.float64)
+    inv = np.where(g.out_degree > 0, 1.0 / np.maximum(g.out_degree, 1), 0.0)
+    new = (1 - d) / g.n + d * np.bincount(g.dst, weights=(pr * inv)[g.src],
+                                          minlength=g.n)
+    if dangling:
+        new += d * pr[g.out_degree == 0].sum() / g.n
+    return new - pr
 PPR_ROWS = 8  # seed rows of the batched solves and of gs_pass_multi
 PPR_WIDE_ROWS = 65  # one row more than one gs_pass_multi launch takes
 ENGINE_QUERIES = 32
@@ -246,6 +316,54 @@ def gs_inputs(graph, bg, rng, d=0.85):
     return pr, frozen, params
 
 
+def block_masks(n_blocks: int) -> dict[str, np.ndarray]:
+    """Whole-block freeze masks, ``(n_blocks,)`` bool, as the adaptive
+    schedule gives gs_pass: none, a seeded random half, all but the first
+    block, all but the last, alternating runs of 1 and 9 frozen blocks
+    (each run ended by one live block; a run of 9 is longer than the k
+    blocks between a helper's gather and its sum), and all."""
+    runs = np.array([True, False] + [True] * 9 + [False])
+    masks = {
+        "none": np.zeros(n_blocks, bool),
+        "random half": np.random.default_rng(3).permutation(n_blocks) < n_blocks // 2,
+        "all but the first": np.arange(n_blocks) > 0,
+        "all but the last": np.arange(n_blocks) < n_blocks - 1,
+        "runs of 1 and 9": np.resize(runs, n_blocks),
+        "all": np.ones(n_blocks, bool),
+    }
+    return masks
+
+
+def whole_block_check(tag, bg, pr, params, dev) -> float:
+    """gs_pass under each of :func:`block_masks`' whole-block freezes,
+    against its plain version within the entry bound, frozen lanes bit for
+    bit the input (an all-frozen pass returns its input), and timed.
+    Returns the largest max abs error."""
+    from repro_torch.kernels.spmv import gs_pass, gs_pass_ref
+
+    worst = 0.0
+    for name, blocks in block_masks(bg.n_blocks).items():
+        frozen = torch.as_tensor(blocks, device=dev)[:, None].expand(
+            bg.n_blocks, bg.block).contiguous()
+        args = (pr, bg.inv_out, bg.vmask, params, bg.in_ptr, bg.src,
+                bg.weights, bg.bias, frozen)
+        out, ref = gs_pass(*args), gs_pass_ref(*args)
+        torch.cuda.synchronize()
+        err, rel, ent = check_agreement(f"gs_pass ({tag}, {name} frozen)", out, ref)
+        check(torch.equal(out[frozen], pr[frozen]),
+              f"gs_pass ({tag}, {name} frozen) moved a frozen lane")
+        if blocks.all():
+            check(torch.equal(out, pr),
+                  f"gs_pass ({tag}, all frozen) did not return its input")
+        ms, by = device_ms(lambda: gs_pass(*args), 10)
+        worst = max(worst, err)
+        print(f"kernel gs_pass {tag} whole blocks frozen ({name}: "
+              f"{int(blocks.sum())} of {bg.n_blocks}): max_abs_err={err:.3e} "
+              f"entry_rel={ent:.3e} (bound {KERNEL_RTOL:g}); frozen lanes "
+              f"bit-identical; ms={ms:.4f} (device, by {by})", flush=True)
+    return worst
+
+
 def kernel_phase(g, gw, dev):
     from repro_torch.kernels.spmv import (
         BlockedGraph, gs_pass, gs_pass_ref, spmv_csr_acc, spmv_csr_acc_ref,
@@ -322,6 +440,7 @@ def kernel_phase(g, gw, dev):
               f"plain_ms={s['plain_ms']:.4f} library_ms=null "
               f"bound_ms={s['bound_ms']:.4f} (bytes; plus "
               f"{bg.n_blocks} dependent block steps per pass)", flush=True)
+        s["max_abs_err"] = max(err, whole_block_check(tag, bg, pr, params, dev))
         stats["gs_pass_multi"][tag] = multi_kernel_check(
             graph, bg, tag, gs, params, csr_bytes)
     return stats
@@ -446,20 +565,23 @@ def multi_kernel_check(graph, bg, tag, gs, params, csr_bytes):
     return s
 
 
-def solve_phase():
+def solve_phase(g):
     from repro_torch.kernels.spmv import launch_counts, reset_launch_counts
     from repro_torch.launch import pagerank_run
 
     base = ["--dataset", "webStanford", "--scale-down", "1", "--device", "cuda",
             "--threshold", str(SOLVE_THRESHOLD)]
     expect = {"blocked": "spmv_csr_acc", "blocked_nosync": "gs_pass",
-              "blocked_nosync_opt": "gs_pass"}
-    # the main path of each kernel: its first variant, --handle-dangling
-    main_solve = {"spmv_csr_acc": "blocked", "gs_pass": "blocked_nosync"}
+              "blocked_nosync_opt": "gs_pass", "blocked_adaptive": "gs_pass"}
+    # the main paths of each kernel, --handle-dangling: the first variant
+    # named is the kernel's first main path, the others later slices' own
+    main_solve = {"spmv_csr_acc": ("blocked",),
+                  "gs_pass": ("blocked_nosync", "blocked_adaptive")}
     launches = {}
     reports = {}
     runs = [(v, True) for v in ("blocked", "blocked_nosync", "blocked_nosync_opt",
-                                "nosync", "barrier")]
+                                "blocked_adaptive", "nosync", "nosync_adaptive",
+                                "barrier", "barrier_edge", "barrier_identical")]
     runs += [("blocked", False), ("blocked_nosync", False)]
     for variant, dangling in runs:
         argv = base + ["--variant", variant] + (["--handle-dangling"] if dangling else [])
@@ -467,8 +589,9 @@ def solve_phase():
         rep = pagerank_run.run(argv)
         counts = launch_counts()
         if dangling:
-            launches.update({k: n for k, n in counts.items()
-                             if main_solve.get(k) == variant})
+            for k, n in counts.items():
+                if variant in main_solve.get(k, ()):
+                    launches.setdefault(k, {})[variant] = n
         it = rep["iterations"]
         for k, n in counts.items():
             want = it if expect.get(variant) == k else 0
@@ -477,9 +600,21 @@ def solve_phase():
         bound = L1_BOUND.get(variant, L1_DEFAULT)
         check(rep["l1"] <= bound, f"{variant}: L1 {rep['l1']:.3e} > {bound:g}")
         print(f"solve {variant} handle_dangling={dangling}: iterations={it} "
-              f"err={rep['err']:.3e} wall_s={rep['wall_s']:.4f} "
-              f"l1={rep['l1']:.3e} (bound {bound:g}) launches={counts}", flush=True)
+              f"sweeps={rep['sweeps']} err={rep['err']:.3e} "
+              f"wall_s={rep['wall_s']:.4f} l1={rep['l1']:.3e} (bound {bound:g}) "
+              f"launches={counts}", flush=True)
         reports[(variant, dangling)] = rep
+    barrier_it = reports[("barrier", True)]["iterations"]
+    for variant in ("barrier_edge", "barrier_identical"):
+        it = reports[(variant, True)]["iterations"]
+        check(abs(it - barrier_it) <= 1,
+              f"{variant}: {it} iterations, barrier {barrier_it} (expected within 1)")
+    n_classes = int(g.in_neighbor_classes().max()) + 1
+    print(f"solve barrier_edge / barrier_identical: "
+          f"{reports[('barrier_edge', True)]['iterations']} / "
+          f"{reports[('barrier_identical', True)]['iterations']} iterations, barrier "
+          f"{barrier_it}; barrier_identical sums {n_classes} classes for "
+          f"{g.n} vertices", flush=True)
     fig7 = (reports[("blocked_nosync", False)]["iterations"],
             reports[("blocked", False)]["iterations"])
     check(fig7[0] <= fig7[1], f"Fig 7 fails: blocked_nosync {fig7[0]} > blocked {fig7[1]}")
@@ -490,21 +625,157 @@ def solve_phase():
     return launches
 
 
-def repeat_phase(g, dev):
+@contextlib.contextmanager
+def checked_passes(tag):
+    """Hold every gs_pass call of the blocked path against gs_pass_ref on
+    the same operands while a solve runs: within the entry bound, frozen
+    lanes bit for bit the input.  It wraps the name the sweep calls
+    (``repro_torch.kernels.spmv.ops.gs_pass``), the one place where the
+    masks the adaptive schedule hands the kernel can be seen; the real
+    wrapper still launches and counts.  Yields the list of the blocks each
+    pass froze and the worst entry-wise error."""
+    from repro_torch.kernels.spmv import gs_pass_ref, ops
+
+    real = ops.gs_pass
+    seen = {"frozen": [], "entry_rel": 0.0}
+
+    def checked(pr, *args):
+        out = real(pr, *args)
+        frozen = args[-1]
+        name = f"gs_pass ({tag}, pass {len(seen['frozen']) + 1})"
+        _, _, ent = check_agreement(name, out, gs_pass_ref(pr, *args))
+        check(torch.equal(out[frozen], pr[frozen]), f"{name} moved a frozen lane")
+        seen["frozen"].append(int(frozen[:, 0].sum()))
+        seen["entry_rel"] = max(seen["entry_rel"], ent)
+        return out
+
+    ops.gs_pass = checked
+    try:
+        yield seen
+    finally:
+        ops.gs_pass = real
+
+
+def adaptive_phase(g, dev):
+    """The adaptive schedules at full size on the BFS-reordered surrogate,
+    with dangling redistribution on and off: blocked_adaptive against
+    blocked_nosync, and nosync_adaptive against nosync (56 threads).
+    Returns the reordered graph."""
+    from repro_torch.core.pagerank import l1_norm, pagerank_numpy, partition_gain_matrix
+    from repro_torch.core.solver import build_variant
+    from repro_torch.graphs import compute_order, permute_graph
+    from repro_torch.kernels.spmv import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    gb = permute_graph(g, compute_order(g, "bfs"))
+    order_s = time.perf_counter() - t0
+    n_blocks = -(-gb.n // 256)
+    t0 = time.perf_counter()
+    gain = partition_gain_matrix(gb, 256, n_blocks)
+    gain_s = time.perf_counter() - t0
+    print(f"adaptive: BFS order and permuted graph in {order_s:.2f}s (host); block "
+          f"gain ({n_blocks}, {n_blocks}), {int(np.count_nonzero(gain))} nonzeros, "
+          f"largest row sum {gain.sum(axis=1).max():.1f}, built in {gain_s:.3f}s "
+          f"(host)", flush=True)
+    bundles = {}
+    for variant in ("blocked_nosync", "blocked_adaptive", "nosync", "nosync_adaptive"):
+        t0 = time.perf_counter()
+        bundles[variant] = build_variant(variant, gb, device=dev)
+        torch.cuda.synchronize()
+        print(f"adaptive: {variant} bundle built in {time.perf_counter() - t0:.3f}s",
+              flush=True)
+    # the kernel on the reordered graph's block and edge structure, under
+    # the synthetic whole-block masks of the kernel phase
+    _, bgb = bundles["blocked_nosync"]
+    pr, _, params = gs_inputs(gb, bgb, np.random.default_rng(0))
+    whole_block_check("unweighted, BFS order", bgb, pr, params, dev)
+    for dangling in (True, False):
+        oracle, _ = pagerank_numpy(gb, threshold=1e-12, handle_dangling=dangling)
+        kw = dict(threshold=SOLVE_THRESHOLD, handle_dangling=dangling)
+        res = {}
+        for variant, (v, bundle) in bundles.items():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            r = v.run(bundle, **kw)
+            pr = r.pr.cpu()
+            wall = time.perf_counter() - t0
+            l1 = l1_norm(pr, oracle)
+            counts = launch_counts()
+            want = r.iterations if variant.startswith("blocked") else 0
+            check(counts["gs_pass"] == want,
+                  f"adaptive {variant}: gs_pass launched {counts['gs_pass']} times "
+                  f"for {r.iterations} passes, expected {want}")
+            resid = jacobi_residual(gb, pr.numpy(), dangling)
+            over = np.abs(resid) / residual_allowance(gb, pr.numpy(), dangling)
+            check(over.max() <= 1.0,
+                  f"adaptive {variant}: vertex {int(over.argmax())} keeps a "
+                  f"residual {over.max():.3f}x what the stop rule certifies")
+            bound = (adaptive_l1_bound(gb.n) if dangling and "adaptive" in variant
+                     else L1_DEFAULT)
+            check(l1 <= bound, f"adaptive {variant}: L1 {l1:.3e} > {bound:g}")
+            res[variant] = r
+            extra = ""
+            if variant == "blocked_nosync":
+                extra = f"block_sweeps={r.iterations * n_blocks} "
+            elif variant == "blocked_adaptive":
+                tag = f"BFS order, handle_dangling={dangling}"
+                with checked_passes(tag) as seen:
+                    again = v.run(bundle, **kw)
+                frozen = np.array(seen["frozen"])
+                share = frozen / n_blocks
+                check(again.iterations == r.iterations and again.sweeps == r.sweeps
+                      and torch.equal(again.pr.cpu(), pr),
+                      "adaptive blocked_adaptive: the checked run differs")
+                check(len(frozen) == r.iterations
+                      and r.sweeps == r.iterations * n_blocks - int(frozen.sum()),
+                      "adaptive blocked_adaptive: frozen blocks disagree with sweeps")
+                print(f"kernel gs_pass unweighted ({tag}): each of the "
+                      f"{len(frozen)} passes of blocked_adaptive, under the masks "
+                      f"its schedule gave, against gs_pass_ref: entry_rel<="
+                      f"{seen['entry_rel']:.3e} (bound {KERNEL_RTOL:g}); frozen "
+                      f"lanes bit-identical", flush=True)
+                extra = (f"block_sweeps={r.sweeps} ({r.sweeps / (r.iterations * n_blocks):.3f} "
+                         f"of passes x {n_blocks}) frozen share per pass first/median/"
+                         f"last={share[0]:.3f}/{np.median(share):.3f}/{share[-1]:.3f} ")
+            print(f"adaptive {variant} handle_dangling={dangling}: "
+                  f"iterations={r.iterations} sweeps={r.sweeps} {extra}"
+                  f"l1={l1:.3e} (bound {bound:.3g}; the residual left: max "
+                  f"{np.abs(resid).max():.3e}, at most {over.max():.3f} of what the "
+                  f"stop rule certifies; sum {resid.sum():.3e}, L1/(1-d) "
+                  f"{np.abs(resid).sum() / (1 - 0.85):.3e}) wall_s={wall:.4f} "
+                  f"launches={counts}", flush=True)
+        for plain, adaptive in (("blocked_nosync", "blocked_adaptive"),
+                                ("nosync", "nosync_adaptive")):
+            a, b = res[plain], res[adaptive]
+            units = n_blocks if plain == "blocked_nosync" else 1
+            print(f"adaptive handle_dangling={dangling}: {adaptive} / {plain}: "
+                  f"iterations {b.iterations} / {a.iterations}, sweeps "
+                  f"{b.sweeps} / {a.sweeps * units} "
+                  f"({b.sweeps / (a.sweeps * units):.3f})", flush=True)
+    return gb
+
+
+def repeat_phase(g, gb, dev):
     """Same-input solves must repeat exactly (fixed-order sums on every
-    path), and the residual curve past the threshold shows the float32
+    path; the adaptive schedules on the BFS-reordered ``gb``, where they
+    skip), and the residual curve past the threshold shows the float32
     floor that the 1e-8 stop rule sits above."""
     from repro_torch.core.solver import build_variant
 
-    for variant in ("barrier", "nosync", "blocked"):
-        v, bundle = build_variant(variant, g, device=dev)
+    for variant, graph in (("barrier", g), ("nosync", g), ("blocked", g),
+                           ("blocked_adaptive", gb), ("nosync_adaptive", gb)):
+        v, bundle = build_variant(variant, graph, device=dev)
         a, b = (v.run(bundle, threshold=SOLVE_THRESHOLD, handle_dangling=True)
                 for _ in range(2))
-        check(a.iterations == b.iterations and torch.equal(a.pr, b.pr),
+        check(a.iterations == b.iterations and a.sweeps == b.sweeps
+              and torch.equal(a.pr, b.pr),
               f"{variant}: two solves of one input differ "
-              f"({a.iterations} vs {b.iterations} iterations)")
-        print(f"repeat {variant}: two solves give {a.iterations} iterations "
-              f"and identical ranks", flush=True)
+              f"({a.iterations} vs {b.iterations} iterations, {a.sweeps} vs "
+              f"{b.sweeps} sweeps)")
+        print(f"repeat {variant}{' (BFS order)' if graph is gb else ''}: two "
+              f"solves give {a.iterations} iterations, {a.sweeps} sweeps and "
+              f"identical ranks", flush=True)
     for variant in ("barrier", "blocked", "blocked_nosync"):
         v, bundle = build_variant(variant, g, device=dev)
         r = v.run(bundle, threshold=0.0, max_iter=FLOOR_ITERS,
@@ -553,22 +824,27 @@ def print_trace(tag, wall_ms, busy_ms, rows, extra="", top=6):
               f"x{e.count:<5d} {e.key[:70]}")
 
 
-def profile_phase(g, dev):
-    """One traced solve per kernel variant: device time by kernel and the
-    device's busy share of the traced wall (the trace adds host overhead,
-    so the untraced wall of the solve phase is the end-to-end number)."""
+def profile_phase(g, gb, dev):
+    """One traced solve per kernel variant (blocked_adaptive on the
+    launcher's graph and on the BFS-reordered ``gb``): device time by
+    kernel and the device's busy share of the traced wall (the trace adds
+    host overhead, so the untraced wall of the solve phase is the
+    end-to-end number)."""
     from repro_torch.core.solver import build_variant
     from repro_torch.serving import make_query_stream
 
     seeds = [q.seeds for q in make_query_stream(g.n, PPR_ROWS, seed=0)]
-    for variant, opts in (("blocked", {}), ("blocked_nosync", {}),
-                          ("ppr_blocked", {"seeds": seeds})):
-        v, bundle = build_variant(variant, g, device=dev)
+    for variant, graph, opts in (("blocked", g, {}), ("blocked_nosync", g, {}),
+                                 ("blocked_adaptive", g, {}),
+                                 ("blocked_adaptive", gb, {}),
+                                 ("ppr_blocked", g, {"seeds": seeds})):
+        v, bundle = build_variant(variant, graph, device=dev)
         kw = dict(threshold=SOLVE_THRESHOLD, handle_dangling=True, **opts)
         v.run(bundle, **kw)  # warm-up
         r, wall_ms, busy_ms, rows = traced(lambda: v.run(bundle, **kw))
-        print_trace(variant, wall_ms, busy_ms, rows,
-                    extra=f"iterations={r.iterations} ")
+        tag = variant + (" (BFS order)" if graph is gb else "")
+        print_trace(tag, wall_ms, busy_ms, rows,
+                    extra=f"iterations={r.iterations} sweeps={r.sweeps} ")
 
 
 def ppr_oracle(g, seed_sets, d=0.85, threshold=1e-12, max_iter=2000):
@@ -612,7 +888,7 @@ def ppr_phase(g, dev, oracle):
 
     seeds = [q.seeds for q in make_query_stream(g.n, PPR_ROWS, seed=0)]
     kw = dict(threshold=SOLVE_THRESHOLD, handle_dangling=True, seeds=seeds)
-    launches = None
+    launches = {}
     results = {}
     for variant in ("ppr_blocked", "ppr_barrier", "ppr_nosync"):
         v, bundle = build_variant(variant, g, device=dev)
@@ -628,7 +904,7 @@ def ppr_phase(g, dev, oracle):
               f"{variant}: gs_pass_multi launched {counts['gs_pass_multi']} "
               f"times, expected {want}")
         if variant == "ppr_blocked":
-            launches = counts["gs_pass_multi"]
+            launches[variant] = counts["gs_pass_multi"]
         check(tuple(r.pr.shape) == (PPR_ROWS, g.n) and bool(torch.isfinite(r.pr).all()),
               f"{variant}: ranks of shape {tuple(r.pr.shape)} or not finite")
         l1 = [l1_norm(r.pr[i], oracle[_key(s)]) for i, s in enumerate(seeds)]
@@ -1179,9 +1455,11 @@ def main() -> int:
           f"dangling={int((g.out_degree == 0).sum())}", flush=True)
 
     stats = kernel_phase(g, gw, dev)
-    launches = solve_phase()
-    repeat_phase(g, dev)
-    profile_phase(g, dev)
+    launches = solve_phase(g)
+    gb = adaptive_phase(g, dev)
+    repeat_phase(g, gb, dev)
+    profile_phase(g, gb, dev)
+    del gb
     from repro_torch.serving import make_query_stream
 
     # the engine's queries and the first rows of every batched solve are a
@@ -1201,10 +1479,13 @@ def main() -> int:
     kernels = []
     for name, by_tag in stats.items():
         s = by_tag["unweighted"]  # the shapes the main path gives the kernel
+        paths = launches[name]  # {main path: launches}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/spmv/csrc/spmv.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name],
+            # the first main path's count; each path's in launches_by_path
+            "launches": next(iter(paths.values())), "launches_by_path": paths,
             "max_abs_err": max(t["max_abs_err"] for t in by_tag.values()),
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "bytes", "library_ms": s["library_ms"],
@@ -1221,7 +1502,8 @@ def main() -> int:
         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
         "timed_by": {"ms": "events", "plain_ms": "events", "library_ms": "events"},
     })
-    check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
+    check(all(k["launches"] > 0 and all(n > 0 for n in k.get("launches_by_path", {}).values())
+              for k in kernels), "a kernel never launched on a main path")
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,6 +14,11 @@ apply the same stop rule.  ``iterations``, ``sweeps`` and the inf-padded
 ``threshold`` are made at float32, as the reference's weakly-typed compare
 against a float32 error is.
 
+The residual-adaptive schedules (:func:`adaptive_schedule`,
+:func:`freeze_adaptive_schedule`) carry a certified per-unit residual bound
+in ``EngineState.aux`` and skip the units whose bound sits at or below
+``threshold / 2``.
+
 The port has its own registry (:func:`register_variant`); it never touches
 the reference's.
 """
@@ -59,9 +64,14 @@ class EngineState(NamedTuple):
     schedule's step touches it.  ``frozen`` is the perforation mask (bool,
     same shape as ``pr``, or a zero-size stub when no transform needs it).
     ``perr`` holds the last observed error per schedule unit, on the
-    device.  ``it`` is a host int; ``sweeps`` is a host int, or a 0-dim
-    device tensor where a schedule decides on the device whether a unit
-    swept (thread-level termination).
+    device; for units an adaptive schedule skipped it holds the pre-round
+    certified bound instead (at or below the skip cut, so it never blocks
+    the stop rule).  ``it`` is a host int; ``sweeps`` is a host int, or a
+    0-dim device tensor where a schedule decides on the device whether a
+    unit swept (thread-level termination, block skipping).  ``aux`` is
+    schedule-owned carried state the engine never touches: the adaptive
+    schedules keep their staleness-inflated bound vector there; every other
+    schedule leaves it the empty default.
     """
 
     pr: torch.Tensor
@@ -69,6 +79,7 @@ class EngineState(NamedTuple):
     perr: torch.Tensor
     it: int
     sweeps: Any
+    aux: Any = ()
 
 
 # A transform post-processes one proposed update: (old, new, frozen) ->
@@ -241,6 +252,107 @@ def nosync_schedule(
     return step
 
 
+def adaptive_schedule(
+    sweep: Callable[..., torch.Tensor],
+    *,
+    p: int,
+    vp: int,
+    threshold: float,
+    d: float,
+    gain: torch.Tensor,
+    prologue: Callable[[torch.Tensor], Any] | None = None,
+) -> Callable:
+    """Residual-adaptive No-Sync: :func:`nosync_schedule` with the order and
+    the skip set chosen per partition from a certified residual bound.
+
+    * **ordering** — partitions are swept in descending bound order each
+      round (a stable sort, so round one, all ``inf``, runs 0…p−1);
+    * **skipping** — a partition whose bound is at or below
+      ``threshold / 2`` (compared in float32) is not swept this round.
+
+    The bound lives in ``EngineState.aux``, one entry per vertex: ``gain``
+    is the ``(n_pad, p)`` per-vertex certificate and a partition's bound is
+    the max over its vertices.  A swept vertex restarts from 0, and every
+    vertex is inflated by the worst-case influence of this round's updates,
+    ``bound += d · gain @ maxΔ``, where ``maxΔ_j`` is the max-abs update
+    partition ``j`` applied.  ``perr`` is the observed delta of a swept
+    partition and the *pre-inflation* bound of a skipped one, so the stop
+    rule is the reference's.
+
+    The sweep order and the skip set are read to the host once a round
+    (``2p`` values); the partition loop then launches only the sweeps that
+    run.  ``sweep``/``prologue`` are as in :func:`nosync_schedule`.  Pass
+    ``aux0=torch.full((p · vp,), inf)`` to :func:`solve`."""
+    cut = _f32(threshold / 2)
+    df = _f32(d)
+
+    def step(state: EngineState) -> EngineState:
+        ctx = prologue(state.pr) if prologue is not None else None
+        bound = state.aux
+        pbound = torch.amax(bound.reshape(p, vp), dim=1)
+        active = pbound > cut
+        order = torch.argsort(-pbound, stable=True)
+        plan = torch.cat([order, active.to(order.dtype)]).tolist()
+        pr = state.pr.clone()
+        deltas = torch.zeros(p, dtype=pr.dtype, device=pr.device)
+        nsw = state.sweeps
+        for i in plan[:p]:
+            if not plan[p + i]:
+                continue
+            part = slice(i * vp, (i + 1) * vp)
+            old = pr[..., part]
+            new = sweep(i, pr) if prologue is None else sweep(i, pr, ctx)
+            deltas[i] = torch.max(torch.abs(new - old))
+            pr[..., part] = new
+            nsw += 1
+        swept = active.repeat_interleave(vp)
+        bound = bound.masked_fill(swept, 0.0) + df * torch.mv(gain, deltas)
+        perr = torch.where(active, deltas, pbound)
+        return EngineState(pr, state.frozen, perr, state.it + 1, nsw, bound)
+
+    return step
+
+
+def freeze_adaptive_schedule(
+    sweep: Callable[..., torch.Tensor],
+    *,
+    threshold: float,
+    d: float,
+    gain: torch.Tensor,
+) -> Callable:
+    """Residual-adaptive scheduling for a sweep that takes a freeze mask
+    instead of a partition index: the blocked Gauss–Seidel pass, whose walk
+    of dst blocks is fixed.  Each unit is one row of the ``(n_blocks,
+    block)`` rank layout.
+
+    A block whose certified bound is at or below ``threshold / 2`` is
+    frozen for the whole pass (``sweep(pr, frozen)`` keeps its ranks) and
+    unfrozen once its neighbours' updates inflate the bound past the cut;
+    the bound model, ``perr`` and the stop rule are
+    :func:`adaptive_schedule`'s, with ``gain`` per block (``(n_blocks,
+    n_blocks)``).  There is no reordering.  Everything stays on the device:
+    ``sweeps`` (blocks swept) is a device count.  Pass
+    ``aux0=torch.full((n_blocks,), inf)`` to :func:`solve`."""
+    cut = _f32(threshold / 2)
+    df = _f32(d)
+
+    def step(state: EngineState) -> EngineState:
+        bound = state.aux
+        active = bound > cut
+        # gs_pass takes a contiguous bool mask, not a broadcast view
+        frozen = (~active)[:, None].expand(state.pr.shape).contiguous()
+        new = sweep(state.pr, frozen)
+        err = torch.amax(torch.abs(new - state.pr), dim=1)
+        deltas = err.masked_fill(~active, 0.0)
+        new_bound = bound.masked_fill(active, 0.0) + df * torch.mv(gain, deltas)
+        perr = torch.where(active, err, bound)
+        sweeps = state.sweeps + active.sum()
+        return EngineState(new, state.frozen, perr, state.it + 1, sweeps,
+                           new_bound)
+
+    return step
+
+
 # ---------------------------------------------------------------------------
 # The engine: the one loop every variant shares
 # ---------------------------------------------------------------------------
@@ -254,15 +366,17 @@ def solve(
     threshold: float,
     max_iter: int,
     track_frozen: bool = False,
+    aux0: Any = (),
 ) -> PageRankResult:
     """Iterate ``step`` until every observed unit error is at or below
     ``threshold`` (or ``max_iter``).  Returns the rank tensor in the
     solver's own layout — callers strip padding / reshape.
 
     ``track_frozen`` allocates the perforation freeze mask; otherwise the
-    state carries a zero-size stub.  The stop rule reads the max unit error
-    back to the host once per iteration, and records it in the
-    ``residuals`` trajectory."""
+    state carries a zero-size stub.  ``aux0`` seeds the schedule-owned
+    ``EngineState.aux`` (the adaptive schedules' bound vector).  The stop
+    rule reads the max unit error back to the host once per iteration, and
+    records it in the ``residuals`` trajectory."""
     thr = _f32(threshold)
     dev = pr0.device
     state = EngineState(
@@ -272,6 +386,7 @@ def solve(
         perr=torch.full((n_units,), math.inf, dtype=pr0.dtype, device=dev),
         it=0,
         sweeps=0,
+        aux=aux0,
     )
     residuals = torch.full((max_iter,), math.inf, dtype=torch.float32)
     err = math.inf

@@ -82,6 +82,52 @@ class Graph:
         return cls(n=n, src=src, dst=dst, out_degree=out_degree, in_ptr=in_ptr,
                    weights=weights, bias=bias)
 
+    def out_csr(self):
+        """CSR over out-links: ``(out_ptr, out_dst, edge_slot)``.
+
+        ``edge_slot[j]`` gives, for the j-th edge in src-sorted order, its
+        index in the canonical dst-sorted order: the paper's ``offsetList``
+        (Alg 2 line 11), where a vertex writes its contribution so that the
+        destination's in-link scan finds it contiguously.  Computed on each
+        call (the port's ``Graph`` carries no cache)."""
+        order = np.lexsort((self.dst, self.src))
+        out_ptr = np.zeros(self.n + 1, dtype=np.int64)
+        np.cumsum(np.bincount(self.src, minlength=self.n), out=out_ptr[1:])
+        return out_ptr, self.dst[order], order.astype(np.int64)
+
+    def in_neighbor_classes(self) -> np.ndarray:
+        """STIC-D 'identical nodes': class id per vertex; vertices with the
+        same in-neighbour set share a class (identical PageRank).  Classes
+        are numbered in order of first appearance, as the reference's are.
+
+        On weighted/biased graphs the class key also covers the in-edge
+        weights and the vertex's bias: two vertices share a rank only when
+        their whole update rule matches, not just the neighbour set."""
+        keys = {}
+        cls_of = np.empty(self.n, dtype=np.int64)
+        for u in range(self.n):
+            lo, hi = self.in_ptr[u], self.in_ptr[u + 1]
+            key = self.src[lo:hi].tobytes()
+            if self.weights is not None:
+                key = (key, self.weights[lo:hi].tobytes())
+            if self.bias is not None:
+                key = (key, float(self.bias[u]))
+            cls_of[u] = keys.setdefault(key, len(keys))
+        return cls_of
+
+
+def _concat_ranges(ptr: np.ndarray, verts: np.ndarray) -> np.ndarray:
+    """Concatenated CSR index ranges ``ptr[v]:ptr[v+1]`` for each v in
+    ``verts``, so a frontier wave touches only the edges of the previous
+    wave."""
+    starts = ptr[verts]
+    lens = (ptr[verts + 1] - starts).astype(np.int64)
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.int64)
+    off = np.repeat(starts - np.r_[0, np.cumsum(lens)[:-1]], lens)
+    return off + np.arange(total, dtype=np.int64)
+
 
 def graph_from_arrays(n, src, dst, out_degree, in_ptr, weights=None,
                       bias=None) -> Graph:

@@ -1,7 +1,7 @@
 """Blocked PageRank on the hand-written CUDA kernels — the port's
 counterpart of the reference's Pallas path (``PallasGraph``/``pagerank_pallas``).
 
-Two schedules share the one convergence engine:
+Three schedules share the one convergence engine:
 
 * ``schedule="barrier"`` — Jacobi: one :func:`spmv_csr_acc` per iteration
   against the previous iterate (registry ``blocked``, the counterpart of
@@ -12,8 +12,13 @@ Two schedules share the one convergence engine:
   perforation (``blocked_nosync_opt`` ↔ ``pallas_nosync_opt``): the
   engine's ``perforation`` transform owns the freeze mask and the kernel
   only respects it.
+* ``schedule="adaptive"`` — one :func:`gs_pass` per iteration with whole
+  dst blocks frozen: blocks whose certified residual bound (from the
+  ``(n_blocks, n_blocks)`` gain certificate, built with ``gain=True``)
+  sits at or below ``threshold / 2`` keep their ranks for the pass
+  (``blocked_adaptive`` ↔ ``pallas_adaptive``).
 
-Both refresh the dangling mass from the current ranks at the top of each
+All three refresh the dangling mass from the current ranks at the top of each
 pass, which leaves the fixed point unchanged.
 
 Layout: the reference bins edges into one-hot ``(dst_block, src_block)``
@@ -25,14 +30,18 @@ Gauss–Seidel unit; ``tile_cap`` is accepted and has no meaning here.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import numpy as np
 import torch
 
+from repro_torch.core.pagerank import partition_gain_matrix
 from repro_torch.core.solver import (
     DEFAULT_DAMPING,
     PageRankResult,
     barrier_schedule,
+    freeze_adaptive_schedule,
     perforation,
     register_variant,
     solve,
@@ -41,14 +50,16 @@ from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph, inv_out_and_dangling
 from repro_torch.kernels.spmv.kernel import gs_pass, spmv_csr_acc
 
-SCHEDULES = ("barrier", "nosync")
+SCHEDULES = ("barrier", "nosync", "adaptive")
 
 
 @dataclasses.dataclass
 class BlockedGraph:
     """Device bundle of the blocked path: the in-CSR plus rank-shaped
     ``(n_blocks, block)`` operands.  ``weights``/``bias`` are ``None`` on
-    unweighted/unbiased graphs (the kernels then skip those multiplies)."""
+    unweighted/unbiased graphs (the kernels then skip those multiplies).
+    ``gain`` is the adaptive schedule's ``(n_blocks, n_blocks)`` block
+    certificate, ``None`` unless the build asked for it."""
 
     n: int
     block: int
@@ -60,12 +71,15 @@ class BlockedGraph:
     vmask: torch.Tensor  # (n_blocks, block) — 1 for real vertices
     weights: torch.Tensor | None = None  # (m,) per-edge weight
     bias: torch.Tensor | None = None  # (n_blocks, block) base multiplier
+    gain: torch.Tensor | None = None  # (n_blocks, n_blocks) cross-block gain
 
     @classmethod
     def build(cls, g: Graph, block: int = 256, tile_cap=None,
-              device=None) -> "BlockedGraph":
+              device=None, gain: bool = False) -> "BlockedGraph":
         """``tile_cap`` is accepted for parity with ``PallasGraph.build``
-        and ignored: the CSR layout has no tiles."""
+        and ignored: the CSR layout has no tiles.  ``gain=True`` also
+        builds the dense block certificate, quadratic in the block count,
+        so it is built only on request, as the reference's is."""
         dev = resolve_device(device)
         if g.m >= 2**31:
             raise ValueError(f"m={g.m} edges overflow the kernels' int32 offsets")
@@ -96,6 +110,9 @@ class BlockedGraph:
             weights=(None if g.weights is None else torch.as_tensor(
                 np.asarray(g.weights, np.float32), device=dev)),
             bias=None if bias is None else blocks(bias),
+            gain=(torch.as_tensor(partition_gain_matrix(g, block, n_blocks),
+                                  dtype=torch.float32, device=dev)
+                  if gain else None),
         )
 
 
@@ -112,14 +129,16 @@ def pagerank_blocked(
     """Blocked-kernel PageRank on the chosen schedule.  ``pr0`` warm-starts
     from a full-length ``(n,)`` host vector (padding lanes zeroed) — same
     fixed point, fewer passes after a small graph update."""
-    if schedule == "adaptive":
-        raise ValueError("schedule 'adaptive' is not ported yet: it comes "
-                         "with the adaptive-schedule slice of the port")
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
     if perforate and schedule != "nosync":
         raise ValueError("perforate requires the nosync schedule "
-                         "(the freeze mask is a gs_pass operand)")
+                         "(the freeze mask is a gs_pass operand; the "
+                         "adaptive schedule owns the mask itself)")
+    if schedule == "adaptive" and bg.gain is None:
+        raise ValueError(
+            "adaptive schedule needs the block gain certificate — rebuild "
+            "with BlockedGraph.build(g, gain=True)")
     dev = bg.vmask.device
     if bg.n == 0:
         return PageRankResult(torch.zeros(0, device=dev), 0, 0.0)
@@ -138,7 +157,7 @@ def pagerank_blocked(
             dm = d * dangling_mass(pr) if handle_dangling else 0.0
             return (base * bz + d * acc + dm) * vmask
 
-    else:  # nosync: one blocked Gauss–Seidel pass per iteration
+    else:  # nosync/adaptive: one blocked Gauss–Seidel pass per iteration
         head = torch.tensor([base, d], dtype=torch.float32, device=dev)
         params_cold = torch.tensor([base, d, 0.0], dtype=torch.float32, device=dev)
 
@@ -155,6 +174,21 @@ def pagerank_blocked(
         padded = np.zeros(bg.n_blocks * bg.block, dtype=np.float32)
         padded[:n] = np.asarray(pr0)
         init = torch.as_tensor(padded.reshape(bg.n_blocks, bg.block), device=dev)
+    if schedule == "adaptive":
+        # whole-block skipping: the freeze mask that perforation feeds per
+        # vertex is driven per dst block here, from the certified block
+        # gain (one engine unit = one block row)
+        gain = bg.gain
+        if handle_dangling:
+            dang_counts = torch.sum(bg.dangling, dim=1)
+            gain = gain + (dang_counts / n)[None, :]
+        step = freeze_adaptive_schedule(sweep, threshold=threshold, d=d,
+                                        gain=gain)
+        aux0 = torch.full((bg.n_blocks,), math.inf, dtype=torch.float32,
+                          device=dev)
+        r = solve(step, init, n_units=bg.n_blocks, threshold=threshold,
+                  max_iter=max_iter, aux0=aux0)
+        return r._replace(pr=r.pr.reshape(-1)[:n])
     # Perforation is the engine's transform (Alg 5), not a kernel fork: the
     # kernel only respects the mask the transform maintains.
     transforms = (perforation(threshold),) if perforate else ()
@@ -169,8 +203,9 @@ def pagerank_blocked(
 # ---------------------------------------------------------------------------
 
 
-def _build(g, block: int = 256, tile_cap=None, device=None, **_):
-    return BlockedGraph.build(g, block=block, tile_cap=tile_cap, device=device)
+def _build(g, block: int = 256, tile_cap=None, device=None, gain=False, **_):
+    return BlockedGraph.build(g, block=block, tile_cap=tile_cap, device=device,
+                              gain=gain)
 
 
 def _run(schedule, perforate=False):
@@ -198,4 +233,11 @@ register_variant(
     "blocked_nosync_opt", build=_build, run=_run("nosync", perforate=True),
     description="CUDA blocked Gauss–Seidel kernel, Alg-3 + Alg-5 perforation",
     layout="blocked", backend="cuda", schedule="nosync",
+)
+register_variant(
+    "blocked_adaptive",
+    # its own layout: the "blocked" bundle lacks the gain certificate
+    build=functools.partial(_build, gain=True), run=_run("adaptive"),
+    description="CUDA blocked Gauss–Seidel kernel, residual-adaptive certified block skipping",
+    layout="blocked_gain", backend="cuda", schedule="adaptive",
 )

@@ -60,7 +60,8 @@ def run(argv=None) -> dict:
     ap.add_argument("--list", action="store_true",
                     help="list every registered variant and exit; columns are "
                          "layout (bundle-sharing key), backend (numpy | torch "
-                         "| cuda) and schedule (barrier | nosync | sequential)")
+                         "| cuda) and schedule (barrier | nosync | adaptive | "
+                         "sequential)")
     args = ap.parse_args(argv)
 
     if args.list:

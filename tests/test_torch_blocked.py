@@ -119,8 +119,11 @@ def test_blocked_rejects_bad_schedules():
         pagerank_blocked(bg, schedule="warp")
     with pytest.raises(ValueError, match="perforate"):
         pagerank_blocked(bg, schedule="barrier", perforate=True)
-    with pytest.raises(ValueError, match="adaptive.*slice"):
+    # the reference's check: adaptive needs the gain certificate
+    with pytest.raises(ValueError, match="adaptive.*gain=True"):
         pagerank_blocked(bg, schedule="adaptive")
+    with pytest.raises(ValueError, match="perforate"):
+        pagerank_blocked(bg, schedule="adaptive", perforate=True)
 
 
 def test_blocked_layout_is_the_in_csr():

@@ -14,6 +14,8 @@ would let a wrong entry far from a PPR seed pass.  The flash-attention and
 LM tests at the end state their own bounds.
 """
 import dataclasses
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -47,6 +49,9 @@ from repro_torch.kernels.spmv import (
     spmv_csr_acc,
     spmv_csr_acc_ref,
 )
+
+sys.path.append(str(pathlib.Path(__file__).resolve().parent.parent))
+from chip_smoke import block_masks  # noqa: E402  (the kernel phase's masks)
 
 pytestmark = pytest.mark.cuda
 
@@ -243,6 +248,36 @@ def test_gs_pass_matches_plain(cuda, gname, block):
     assert torch.equal(out, again)
 
 
+@pytest.mark.parametrize("mask", ["none", "random half", "all but the first",
+                                  "all but the last", "runs of 1 and 9", "all"])
+@pytest.mark.parametrize("block", [64, 256])
+@pytest.mark.parametrize("gname", ["rmat", "rmat_weighted", "hub", "chain"])
+def test_gs_pass_under_whole_block_freezes(cuda, gname, block, mask):
+    """The masks the adaptive schedule gives gs_pass: whole dst blocks
+    frozen, in runs longer than the k blocks between a helper's gather
+    and its sum.  A frozen block's values and q stay the input's, so the
+    window and the helpers' gathers must hand them on unchanged."""
+    g = _graphs()[gname]
+    bg = BlockedGraph.build(g, block=block, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    pr = torch.rand(bg.vmask.shape, generator=gen, device=cuda) * bg.vmask / g.n
+    blocks = block_masks(bg.n_blocks)[mask]
+    frozen = torch.as_tensor(blocks, device=cuda)[:, None].expand(
+        bg.n_blocks, bg.block).contiguous()
+    d = 0.85
+    params = torch.tensor([(1 - d) / g.n, d, 0.3 * d / g.n], device=cuda)
+    args = (pr, bg.inv_out, bg.vmask, params, bg.in_ptr, bg.src, bg.weights,
+            bg.bias, frozen)
+    out = gs_pass(*args)
+    ref = gs_pass_ref(*args)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= RTOL
+    assert torch.equal(out[frozen], pr[frozen])
+    if blocks.all():
+        assert torch.equal(out, pr)
+    assert torch.equal(out, gs_pass(*args))
+
+
 def test_wrappers_count_their_launches(cuda):
     g = _graphs()["rmat"]
     bg = BlockedGraph.build(g, block=256, device=cuda)
@@ -278,7 +313,8 @@ def test_wrappers_count_no_launch_on_empty_input(cuda):
                                "gs_pass_multi": 0}
 
 
-@pytest.mark.parametrize("vname", ["blocked", "blocked_nosync", "blocked_nosync_opt"])
+@pytest.mark.parametrize("vname", ["blocked", "blocked_nosync", "blocked_nosync_opt",
+                                   "blocked_adaptive"])
 @pytest.mark.parametrize("handle_dangling", [False, True])
 def test_blocked_variants_on_card_match_oracle(cuda, vname, handle_dangling):
     g = rmat_graph(10, avg_degree=8, seed=4)
@@ -292,13 +328,34 @@ def test_blocked_variants_on_card_match_oracle(cuda, vname, handle_dangling):
     assert l1_norm(r.pr, ref) < (1e-3 if vname.endswith("_opt") else 1e-5)
 
 
-@pytest.mark.parametrize("vname", ["barrier", "nosync", "blocked", "blocked_nosync"])
+@pytest.mark.parametrize("handle_dangling", [False, True])
+def test_blocked_adaptive_on_card_matches_oracle_and_repeats(cuda, handle_dangling):
+    from repro_torch.graphs import compute_order, permute_graph
+
+    g = make_dataset("webStanford", scale_down=64)
+    g = permute_graph(g, compute_order(g, "bfs"))
+    ref, _ = pagerank_numpy(g, threshold=1e-12, handle_dangling=handle_dangling)
+    reset_launch_counts()
+    a, b = (solve_variant("blocked_adaptive", g, threshold=1e-9,
+                          handle_dangling=handle_dangling, block=64, device=cuda)
+            for _ in range(2))
+    assert launch_counts()["gs_pass"] == 2 * a.iterations > 0
+    n_blocks = -(-g.n // 64)
+    assert n_blocks <= a.sweeps < a.iterations * n_blocks  # some blocks skipped
+    assert l1_norm(a.pr, ref) < 1e-5
+    assert (a.iterations, a.sweeps) == (b.iterations, b.sweeps)
+    assert torch.equal(a.pr, b.pr) and torch.equal(a.residuals, b.residuals)
+
+
+@pytest.mark.parametrize("vname", ["barrier", "nosync", "blocked", "blocked_nosync",
+                                   "blocked_adaptive"])
 def test_same_input_solves_repeat_exactly(cuda, vname):
     # hub rows with thousands of in-edges: an atomic sum would reorder them
     g = make_dataset("webStanford", scale_down=4)
     a, b = (solve_variant(vname, g, threshold=1e-8, handle_dangling=True,
                           device=cuda) for _ in range(2))
     assert a.iterations == b.iterations > 0
+    assert a.sweeps == b.sweeps
     assert torch.equal(a.pr, b.pr)
     assert torch.equal(a.residuals, b.residuals)
 

@@ -3,8 +3,8 @@ scripts import neither JAX nor anything of the reference package ``repro``
 (``repro_torch`` is the port).
 
 Every ``.py`` under ``src/repro_torch/``, ``chip_smoke.py`` and the
-card scripts (``scripts/flash_ablation.py``, ``scripts/spmv_ablation.py``,
-``scripts/spmv_times.py``) is parsed with ``ast`` — nothing is imported
+card scripts (``scripts/first_solve.py``, ``scripts/flash_ablation.py``,
+``scripts/spmv_ablation.py``, ``scripts/spmv_times.py``) is parsed with ``ast`` — nothing is imported
 or run.
 """
 import ast
@@ -16,7 +16,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / name
-    for name in ("flash_ablation.py", "spmv_ablation.py", "spmv_times.py")]
+    for name in ("first_solve.py", "flash_ablation.py", "spmv_ablation.py",
+                 "spmv_times.py")]
 
 
 def forbidden_imports(tree: ast.AST) -> list[str]:

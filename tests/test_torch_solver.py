@@ -50,6 +50,8 @@ THRESH = 1e-8
 CPU = "cpu"
 VERTEX_VARIANTS = ("barrier", "barrier_opt", "nosync", "nosync_opt")
 ALL_VARIANTS = VERTEX_VARIANTS + ("blocked", "blocked_nosync", "blocked_nosync_opt")
+SLICE_7_VARIANTS = ("barrier_edge", "barrier_identical", "nosync_adaptive",
+                    "blocked_adaptive")
 PPR_VARIANTS = ("ppr_barrier", "ppr_nosync", "ppr_blocked")
 
 
@@ -160,26 +162,28 @@ def test_solve_stops_at_max_iter_and_pads_residuals():
 def test_engine_state_fields_match_reference():
     from repro.core.solver import EngineState as RefEngineState
 
-    # the port carries no schedule-owned aux slot: the adaptive schedules
-    # that use it come with a later slice
-    assert EngineState._fields == RefEngineState._fields[:-1]
+    assert EngineState._fields == RefEngineState._fields
+    assert EngineState._field_defaults == {"aux": ()}
 
 
 def test_registry_lists_the_slice():
     names = set(list_variants())
-    assert names == {"sequential", *ALL_VARIANTS, *PPR_VARIANTS}
+    assert names == {"sequential", *ALL_VARIANTS, *PPR_VARIANTS,
+                     *SLICE_7_VARIANTS}
+    assert len(names) == 15
     for name in names:
         v = get_variant(name)
         assert v.description and v.layout and v.backend in BACKENDS
     assert {get_variant(n).backend for n in ALL_VARIANTS[4:]} == {"cuda"}
     assert get_variant("ppr_blocked").backend == "cuda"
+    assert get_variant("blocked_adaptive").backend == "cuda"
 
 
 def test_registry_does_not_touch_the_reference():
     from repro.core.solver import list_variants as ref_list_variants
 
     assert not {"blocked", "blocked_nosync", "blocked_nosync_opt",
-                "ppr_blocked"} & set(ref_list_variants())
+                "blocked_adaptive", "ppr_blocked"} & set(ref_list_variants())
 
 
 @pytest.mark.parametrize("bad", [dict(backend="jax"), dict(description=""),

@@ -56,7 +56,17 @@ Phases, one or more lines each; any failure exits non-zero:
 7. profile  — one traced solve of blocked, blocked_nosync, blocked_adaptive
                (also on the BFS-reordered graph) and ppr_blocked (8
                rows): device time by kernel and the device's busy share;
-8. ppr      — batched PPR at full size, 8 seed rows from
+8. sticd    — the STIC-D plan of the full graph (DecompositionPlan,
+               host): its counts held to the reference's, its build and
+               reconstruct times; one gs_pass on the weighted, biased
+               core's operands (351 blocks) against its plain version;
+               barrier_sticd, nosync_sticd (56 threads) and plan_build in
+               front of blocked, blocked_nosync and blocked_adaptive,
+               each warmed up and beside its unplanned variant
+               (iterations, sweeps, wall, L1 to the float64 oracle of the
+               full graph, launches), dangling redistribution on and off;
+               the planned kernel solves traced;
+9. ppr      — batched PPR at full size, 8 seed rows from
                make_query_stream(n, 8, seed=0), --handle-dangling,
                threshold 1e-8: ppr_blocked (the gs_pass_multi main path),
                ppr_barrier and ppr_nosync, each row within L1 1e-4 of a
@@ -64,11 +74,16 @@ Phases, one or more lines each; any failure exits non-zero:
                global blocked fixed point; two ppr_blocked solves repeat;
                ppr_blocked at 65 rows, more than one launch takes, in
                chunks of rows, each row against the oracle;
-9. engine   — PPREngine on the kernel backend, 8 slots, the 32 queries of
+10. engine  — PPREngine on the kernel backend, 8 slots, the 32 queries of
                make_query_stream(n, 32, seed=0) at threshold 1e-6: every
                top-k is the oracle's, q/s and latency; the torch backend
                answers with the same top-k;
-10. flash   — flash_attention against its plain version over the
+11. push    — ppr_push and ppr_push_priority (host float64) at rmax
+               1e-8 from the distinct seed sets of the engine's first 8
+               queries: rounds, pushes, the L1 certificate, wall; every
+               estimate at or below the oracle, every top-10 the oracle's
+               up to the certificate;
+12. flash   — flash_attention against its plain version over the
                reference's test matrix (f32/bf16 x 3 head layouts x
                causal / window 64 / full, s 256, dh 64), ragged and
                sq != sk lengths, and qwen2-vl-2b's shape (b 2, hq 12,
@@ -77,14 +92,14 @@ Phases, one or more lines each; any failure exits non-zero:
                float32 plain result rounded to bf16; times beside the plain version, SDPA
                and the bound (and, in bf16, the floor of the kernel's own
                tensor-core work: P·V as P_TERMS bf16 products);
-11. prefill — qwen2-vl-2b at full width (1.54 B parameters, bf16, random
+13. prefill — qwen2-vl-2b at full width (1.54 B parameters, bf16, random
                from a seeded generator): forward at b 2, s 4096 launches
                the kernel once per layer (the main path); tokens/s over
                three runs, the trace; f32 kernel route against the plain
                route entry-wise; bf16 routes against the f32 forward;
-12. decode  — 128 teacher-forced f32 decode steps against the prefill's
+14. decode  — 128 teacher-forced f32 decode steps against the prefill's
                logits, ms per step (no kernel on this path);
-13. serve   — repro_torch.launch.serve --preset full: every request
+15. serve   — repro_torch.launch.serve --preset full: every request
                finishes (no kernel on this path); then the same requests
                and loop in float32 on the decode phase's weights, every
                token the engine picks held against forward's argmax over
@@ -198,6 +213,22 @@ BF16_ERR_RATIO = 1.25  # bf16 kernel route's mean error over the plain route's
 DECODE_STEPS = 128
 DECODE_TOL = 2e-3  # decode vs prefill, the reference test's atol = rtol
 SERVE_TIE = 1e-4  # top-2 logit gap under which either token is greedy's pick
+# The reference's DecompositionPlan of the full webStanford surrogate
+# (host numpy, the same in both packages; tests/test_torch_sticd.py holds
+# the port's plan to the reference's array for array).
+STICD_STATS = {"full_n": 281903, "full_m": 2312497, "core_n": 89625,
+               "core_m": 2238907, "pruned_identical": 6648,
+               "pruned_chain": 30989, "pruned_dead": 154641,
+               "pruned_edges": 83929, "contracted_edges": 10339}
+STICD_CORE_BLOCKS = 351  # the core's dst blocks of 256
+# (planned, unplanned): the two registered sticd variants and plan_build
+# in front of the three blocked kernel variants
+STICD_PAIRS = (("barrier_sticd", "barrier"), ("nosync_sticd", "nosync"),
+               ("plan(blocked)", "blocked"), ("plan(blocked_nosync)", "blocked_nosync"),
+               ("plan(blocked_adaptive)", "blocked_adaptive"))
+STICD_REPS = 5  # warmed solves timed per variant; their median wall is reported
+PUSH_RMAX = 1e-8
+PUSH_TOPK = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -847,10 +878,16 @@ def profile_phase(g, gb, dev):
                     extra=f"iterations={r.iterations} sweeps={r.sweeps} ")
 
 
-def ppr_oracle(g, seed_sets, d=0.85, threshold=1e-12, max_iter=2000):
+ORACLE_THRESHOLD = 1e-12  # the PPR oracle's last step, max norm
+
+
+def ppr_oracle(g, seed_sets, d=0.85, threshold=ORACLE_THRESHOLD, max_iter=2000):
     """Float64 PPR with dangling mass re-teleported onto each row: a scipy
     sparse power iteration over all rows at once, independent of the port.
-    Returns ``{seed key: (n,) row}``, keyed by the sorted seed set."""
+    Returns ``{seed key: (n,) row}``, keyed by the sorted seed set.  The
+    iteration is a d-contraction in L1, so a row whose last step moved
+    no entry by more than ``threshold`` is within d / (1 - d) · n ·
+    threshold of the exact PPR in L1 (:func:`oracle_l1_err`)."""
     import scipy.sparse as sp
 
     from repro_torch.ppr.batched import teleport_from_seeds
@@ -868,9 +905,14 @@ def ppr_oracle(g, seed_sets, d=0.85, threshold=1e-12, max_iter=2000):
         pr = new
         if err <= threshold:
             break
+    check(err <= threshold, f"oracle: {err:.1e} after {max_iter} iterations")
     print(f"oracle: {len(keys)} seed sets, float64, {it} iterations to "
           f"{err:.1e}", flush=True)
     return {k: pr[:, i] for i, k in enumerate(keys)}
+
+
+def oracle_l1_err(n: int, d: float = 0.85) -> float:
+    return d / (1 - d) * n * ORACLE_THRESHOLD
 
 
 def _key(seeds) -> tuple:
@@ -1008,6 +1050,184 @@ def engine_phase(g, dev, oracle):
               f"engine: qid {qid} top-k differs between the backends")
     print("engine: the torch backend gives the same top-k for every query",
           flush=True)
+
+
+def sticd_phase(g, dev):
+    """The STIC-D plan stage at full size: the plan's counts (held to the
+    reference's), one gs_pass on the weighted, biased core's operands,
+    and each planned solve beside its unplanned counterpart, both warmed
+    up first and timed STICD_REPS times (the median wall is compared),
+    with dangling redistribution on and off; the planned kernel solves are
+    also traced once.  Returns the planned blocked solves'
+    kernel launches, by path."""
+    from repro_torch.core.pagerank import l1_norm, pagerank_numpy
+    from repro_torch.core.solver import build_variant, plan_build, plan_run
+    from repro_torch.graphs import DecompositionPlan
+    from repro_torch.kernels.spmv import (
+        BlockedGraph, gs_pass, gs_pass_ref, launch_counts, reset_launch_counts,
+    )
+
+    t0 = time.perf_counter()
+    plan = DecompositionPlan.from_graph(g)
+    build_s = time.perf_counter() - t0
+    stats = plan.stats()
+    core = plan.core
+    print(f"sticd: plan of the full graph built in {build_s:.3f}s (host): "
+          f"{json.dumps(stats)}", flush=True)
+    for k, want in STICD_STATS.items():
+        check(stats[k] == want, f"sticd: plan {k}={stats[k]}, the reference's is {want}")
+    kept = int((~plan.pruned[g.dst] & ~plan.struct_pruned[g.src]).sum())
+    check(core.m == g.m - stats["pruned_edges"] + stats["contracted_edges"]
+          and core.m == kept + plan.contracted_m,
+          f"sticd: core_m={core.m}, full_m={g.m}, {kept} edges kept, "
+          f"{plan.contracted_m} contracted")
+    check(np.array_equal(core.out_degree, g.out_degree[plan.core_index])
+          and bool((core.out_degree > 0).all()),
+          "sticd: core out-degrees are not the full graph's, or one is 0")
+    check(core.weights is not None and core.bias is not None,
+          "sticd: the contracted core is not weighted and biased")
+    t0 = time.perf_counter()
+    plan.reconstruct(np.full(core.n, 1.0 / core.n), handle_dangling=True)
+    recon_s = time.perf_counter() - t0
+    print(f"sticd: core weighted and biased (weights in [{core.weights.min():.3g}, "
+          f"{core.weights.max():.3g}], bias in [{core.bias.min():.3g}, "
+          f"{core.bias.max():.3g}]), out-degrees the full graph's, none 0; "
+          f"{core.m} = {g.m} - {stats['pruned_edges']} + "
+          f"{stats['contracted_edges']} edges; reconstruct in {recon_s:.3f}s "
+          f"(host)", flush=True)
+
+    bg = BlockedGraph.build(core, block=256, device=dev)
+    check(bg.n_blocks == STICD_CORE_BLOCKS,
+          f"sticd: core has {bg.n_blocks} blocks, expected {STICD_CORE_BLOCKS}")
+    pr, frozen, params = gs_inputs(core, bg, np.random.default_rng(0))
+    args = (pr, bg.inv_out, bg.vmask, params, bg.in_ptr, bg.src, bg.weights,
+            bg.bias, frozen)
+    out, ref = gs_pass(*args), gs_pass_ref(*args)
+    torch.cuda.synchronize()
+    err, rel, ent = check_agreement("gs_pass (sticd core)", out, ref)
+    check(torch.equal(out[frozen], pr[frozen]), "gs_pass (sticd core) moved a frozen lane")
+    ms, by = device_ms(lambda: gs_pass(*args), 10)
+    print(f"kernel gs_pass sticd core (weighted+biased, {bg.n_blocks} blocks): "
+          f"max_abs_err={err:.3e} entry_rel={ent:.3e} (bound {KERNEL_RTOL:g}); "
+          f"frozen lanes bit-identical; ms={ms:.4f} (device, by {by})", flush=True)
+    del bg, pr, frozen, out, ref, args
+
+    kernel_of = {"blocked": "spmv_csr_acc", "blocked_nosync": "gs_pass",
+                 "blocked_adaptive": "gs_pass"}
+    launches = {}
+    for dangling in (True, False):
+        oracle, _ = pagerank_numpy(g, threshold=1e-12, handle_dangling=dangling)
+        kw = dict(threshold=SOLVE_THRESHOLD, handle_dangling=dangling)
+        for planned, plain in STICD_PAIRS:
+            inner = planned[len("plan("):-1] if planned.startswith("plan(") else None
+            opts = dict(threads=56) if "nosync" in plain and inner is None else {}
+            res = {}
+            for name in (planned, plain):
+                t0 = time.perf_counter()
+                if name == planned and inner is not None:
+                    bundle = plan_build(inner)(g, block=256, device=dev)
+                    run = plan_run
+                else:
+                    v, bundle = build_variant(name, g, device=dev, **opts)
+                    run = v.run
+                torch.cuda.synchronize()
+                built = time.perf_counter() - t0
+                run(bundle, **kw)  # warm-up: first launches do not count
+                kernel = kernel_of.get(inner or name)
+                walls = []
+                for _ in range(STICD_REPS):
+                    torch.cuda.synchronize()
+                    reset_launch_counts()
+                    t0 = time.perf_counter()
+                    r = run(bundle, **kw)
+                    pr = r.pr.cpu() if isinstance(r.pr, torch.Tensor) else r.pr
+                    walls.append(time.perf_counter() - t0)
+                    counts = launch_counts()
+                    for k, n in counts.items():
+                        want = r.iterations if k == kernel else 0
+                        check(n == want, f"sticd {name} handle_dangling={dangling}: "
+                              f"{k} launched {n} times, expected {want}")
+                wall = (float(np.median(walls)), min(walls), max(walls))
+                # every solve, adaptive ones too, to L1_DEFAULT: the planned
+                # core solve runs without dangling (reconstruct applies the
+                # redistribution in closed form), and in the original order
+                # the unplanned adaptive solve stays far inside it as well
+                l1 = l1_norm(pr, oracle)
+                check(l1 <= L1_DEFAULT, f"sticd {name} handle_dangling={dangling}: "
+                      f"L1 {l1:.3e} > {L1_DEFAULT:g}")
+                resid = ""
+                if name == "blocked_adaptive":
+                    over = (np.abs(jacobi_residual(g, pr.numpy(), dangling))
+                            / residual_allowance(g, pr.numpy(), dangling)).max()
+                    check(over <= 1.0, f"sticd {name} handle_dangling={dangling}: "
+                          f"a vertex keeps a residual {over:.3f}x what the stop "
+                          f"rule certifies")
+                    resid = f" (residual at most {over:.3f} of what the stop rule certifies)"
+                res[name] = (r, wall, built, l1, counts, resid)
+                if dangling and name == planned and kernel is not None:
+                    launches.setdefault(kernel, {})[name] = counts[kernel]
+                    # where a planned kernel solve's time goes: device
+                    # time by kernel, and the host's share (reconstruct)
+                    _, wall_ms, busy_ms, rows = traced(lambda: run(bundle, **kw))
+                    print_trace(f"sticd {name}", wall_ms, busy_ms, rows,
+                                extra=f"iterations={r.iterations} ")
+            (rp, wp, bp, lp, cp, _), (ru, wu, bu, lu, cu, su) = res[planned], res[plain]
+            print(f"sticd handle_dangling={dangling}: {planned} / {plain}: "
+                  f"iterations {rp.iterations} / {ru.iterations}, sweeps "
+                  f"{rp.sweeps} / {ru.sweeps}, wall_s median of {STICD_REPS} "
+                  f"{wp[0]:.4f} [{wp[1]:.4f}, {wp[2]:.4f}] / {wu[0]:.4f} "
+                  f"[{wu[1]:.4f}, {wu[2]:.4f}] ({wp[0] / wu[0]:.3f}), L1 "
+                  f"{lp:.3e} / {lu:.3e}{su}, built in "
+                  f"{bp:.3f}s / {bu:.3f}s, launches {cp} / {cu}", flush=True)
+    return launches
+
+
+def push_phase(g, oracle, seed_sets):
+    """ppr_push (FIFO) at full size on every seed set, and ppr_push_priority
+    on the one whose FIFO solve pushed most, uniform teleport aside (a
+    priority solve takes tens of seconds on the host).  Host float64.  Each
+    answer is held to the oracle: estimates never above it (they are lower
+    bounds); with dangling redistribution every ppr(e_v) has unit mass, so
+    the true L1 error equals the certificate ``l1_bound``, and the L1 to
+    the oracle must match it within the oracle's own error
+    (:func:`oracle_l1_err`), which a push that lost or gained mass would
+    break; and the top-k is the oracle's up to what the certificate
+    allows."""
+    from repro_torch.ppr import ppr_push
+
+    tol = oracle_l1_err(g.n) + 1e-12
+
+    def one(variant, priority, seeds):
+        t0 = time.perf_counter()
+        res = ppr_push(g, seeds, rmax=PUSH_RMAX, handle_dangling=True,
+                       priority=priority)
+        wall = time.perf_counter() - t0
+        ref = oracle[_key(seeds)]
+        over = float((res.est - ref).max())
+        check(over <= 1e-12, f"{variant} seeds={list(seeds)}: an estimate "
+              f"is {over:.3e} above the oracle")
+        l1 = float(np.abs(res.est - ref).sum())
+        check(abs(l1 - res.l1_bound) <= tol,
+              f"{variant} seeds={list(seeds)}: L1 to the oracle {l1:.6e} is not "
+              f"the certificate {res.l1_bound:.6e} within {tol:.3e}")
+        idx, vals = res.topk(PUSH_TOPK)
+        missed = [int(v) for v in np.argsort(ref)[::-1][:PUSH_TOPK]
+                  if v not in idx]
+        check(all(ref[v] <= vals[-1] + 2 * res.l1_bound + 1e-12 for v in missed),
+              f"{variant} seeds={list(seeds)}: top-{PUSH_TOPK} misses "
+              f"{missed} beyond the certificate")
+        print(f"push {variant} seeds={list(seeds) or 'uniform'} rmax={PUSH_RMAX:g}: "
+              f"rounds={res.rounds} pushes={res.pushes} l1_bound="
+              f"{res.l1_bound:.6e} (L1 to the oracle {l1:.6e}, within "
+              f"{abs(l1 - res.l1_bound):.3e} of it, oracle error <= {tol:.3e}; "
+              f"max est - oracle {over:.3e}) top-{PUSH_TOPK} the oracle's up "
+              f"to the certificate ({len(missed)} swapped) wall_s={wall:.4f}",
+              flush=True)
+        return res.pushes
+
+    pushes = {seeds: one("ppr_push", False, seeds) for seeds in seed_sets}
+    one("ppr_push_priority", True,
+        max((s for s in seed_sets if s), key=lambda s: pushes[s]))
 
 
 def attention_pairs(sq, sk, causal, window) -> int:
@@ -1460,6 +1680,8 @@ def main() -> int:
     repeat_phase(g, gb, dev)
     profile_phase(g, gb, dev)
     del gb
+    for kernel, paths in sticd_phase(g, dev).items():
+        launches[kernel].update(paths)
     from repro_torch.serving import make_query_stream
 
     # the engine's queries and the first rows of every batched solve are a
@@ -1468,6 +1690,9 @@ def main() -> int:
     oracle = ppr_oracle(g, [q.seeds for q in queries] + [()])
     launches["gs_pass_multi"] = ppr_phase(g, dev, oracle)
     engine_phase(g, dev, oracle)
+    # the distinct seed sets of the first PPR_ROWS queries of the engine's
+    # stream: each push solve is host numpy and takes seconds at full size
+    push_phase(g, oracle, sorted({_key(q.seeds) for q in queries[:PPR_ROWS]}))
     del g, gw, oracle
     flash = flash_kernel_phase(dev)
     launches["flash_attention"], cfg32, params32 = lm_phase(dev)

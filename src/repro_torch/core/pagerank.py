@@ -18,6 +18,10 @@ perforation transform for the ``_opt`` forms), solved by
 * ``nosync_adaptive``   — Alg 3 on the residual-adaptive schedule:
                           partitions swept in descending residual-bound
                           order, those certified converged skipped.
+* ``barrier_sticd``, ``nosync_sticd`` — the STIC-D plan stage (Alg 4:
+                          identical, chain and dead vertices pruned, chains
+                          contracted into a weighted, biased core) in front
+                          of ``barrier`` and ``nosync``.
 
 These sweeps were never Pallas kernels in the reference, so they are plain
 torch ops: a gather and a ``segment_reduce`` sum over a dst-sorted edge
@@ -43,6 +47,8 @@ from repro_torch.core.solver import (
     nosync_schedule,
     adaptive_schedule,
     perforation,
+    plan_build,
+    plan_run,
     register_variant,
     solve,
 )
@@ -694,4 +700,21 @@ register_variant(
     description="Alg 3 + Alg 5 loop perforation",
     options=("thread_level",),
     layout="partitioned", backend="torch", schedule="nosync",
+)
+# STIC-D plan stage (Alg 4) in front of the barrier and nosync solves:
+# plan first, then build and partition the weighted, biased core.
+register_variant(
+    "barrier_sticd",
+    build=plan_build("barrier"),
+    run=plan_run,
+    description="STIC-D plan (identical+chain+dead pruned, chains contracted) + Alg-1 core solve",
+    layout="sticd_device", backend="torch", schedule="barrier",
+)
+register_variant(
+    "nosync_sticd",
+    build=plan_build("nosync"),
+    run=plan_run,
+    description="STIC-D plan + Alg-3 no-sync core solve (weighted core partitioned)",
+    options=("thread_level",),
+    layout="sticd_partitioned", backend="torch", schedule="nosync",
 )

@@ -40,14 +40,16 @@ class PageRankResult(NamedTuple):
     """Result of one solve.
 
     ``pr`` is the ``(n,)`` rank vector: a float32 tensor on the solve's
-    device (a float64 numpy array for the ``sequential`` oracle).
+    device (a float64 numpy array for the ``sequential`` oracle and for
+    the plan-staged variants, which reconstruct on the host).
     ``iterations`` and ``sweeps`` are ints, ``err`` a float.  ``residuals``,
     when present, is the per-iteration max observed error as a CPU float32
     tensor of shape ``(max_iter,)``, ``inf`` past the last iteration — slice
     it with ``residuals[:iterations]``.  ``sweeps`` counts executed
     schedule-unit updates: ``iterations`` for the single-unit barrier
     schedules, at most ``iterations · p`` for the partitioned ones; the
-    ``sequential`` oracle leaves both ``None``.
+    ``sequential`` oracle, and a plan whose core is empty, leave both
+    ``None``.
     """
 
     pr: Any
@@ -478,6 +480,7 @@ def _ensure_registered() -> None:
     import repro_torch.core.pagerank  # noqa: F401
     import repro_torch.kernels.spmv.ops  # noqa: F401
     import repro_torch.ppr.batched  # noqa: F401
+    import repro_torch.ppr.push  # noqa: F401
 
 
 def list_variants() -> tuple[str, ...]:
@@ -511,6 +514,132 @@ def build_variant(name: str, g, *, d: float = DEFAULT_DAMPING,
         )
     opts["device"] = resolve_device(opts.get("device"))
     return v, v.build(g, d=d, **opts)
+
+
+def warm_start_pr(g, prev_pr, *, d: float = DEFAULT_DAMPING,
+                  handle_dangling: bool = False) -> np.ndarray:
+    """Warm-start seed after a graph update: one exact float64 sweep of
+    ``g`` applied to the stale fixed point ``prev_pr``, so contributions
+    already divide by the new out-degrees and mass through deleted edges
+    has stopped.  The fixed point does not depend on the start, so a warm
+    start buys iterations, never correctness."""
+    n = int(g.n)
+    prev = np.asarray(prev_pr, dtype=np.float64)
+    if prev.shape != (n,):
+        raise ValueError(f"prev_pr must have shape ({n},), got {prev.shape}")
+    if n == 0:
+        return prev.copy()
+    out_degree = np.asarray(g.out_degree)
+    inv_out = np.where(out_degree > 0, 1.0 / np.maximum(out_degree, 1), 0.0)
+    contrib = (prev * inv_out)[np.asarray(g.src)]
+    if g.weights is not None:
+        contrib = contrib * np.asarray(g.weights)
+    acc = np.zeros(n, dtype=np.float64)
+    np.add.at(acc, np.asarray(g.dst), contrib)
+    base = (1.0 - d) / n
+    base_vec = base if g.bias is None else base * np.asarray(g.bias)
+    new = base_vec + d * acc
+    if handle_dangling:
+        new = new + d * prev[out_degree == 0].sum() / n
+    return new
+
+
+# ---------------------------------------------------------------------------
+# Plan stage: STIC-D decomposition in front of any inner variant
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PlannedBundle:
+    """Bundle of a plan-staged variant: the decomposition plan and the
+    inner variant's bundle built on the plan's core (``None`` when the
+    plan pruned every vertex).  ``build_opts``/``plan_opts`` record what
+    built it, so :func:`plan_run` can re-plan for another ``d``."""
+
+    plan: Any  # repro_torch.graphs.csr.DecompositionPlan
+    inner: Variant
+    bundle: Any
+    build_opts: dict = dataclasses.field(default_factory=dict)
+    plan_opts: dict = dataclasses.field(default_factory=dict)
+
+
+def plan_build(inner: str, **plan_opts) -> Callable:
+    """A ``build(g, **opts)`` that decomposes ``g``
+    (:meth:`DecompositionPlan.from_graph` with ``plan_opts``) and builds
+    ``inner`` on the core, with the other options (the resolved ``device``
+    among them).  The plan bakes the build's ``d`` unless ``plan_opts``
+    pins one."""
+
+    def build(g, **opts):
+        from repro_torch.graphs.csr import DecompositionPlan
+
+        p_opts = dict(plan_opts)
+        p_opts.setdefault("d", opts.get("d", DEFAULT_DAMPING))
+        b_opts = {k: val for k, val in opts.items() if k != "d"}
+        plan = DecompositionPlan.from_graph(g, **p_opts)
+        v = get_variant(inner)
+        bundle = v.build(plan.core, **b_opts) if plan.core.n else None
+        return PlannedBundle(plan=plan, inner=v, bundle=bundle,
+                             build_opts=b_opts, plan_opts=p_opts)
+
+    return build
+
+
+def plan_run(
+    b: PlannedBundle,
+    *,
+    d: float = DEFAULT_DAMPING,
+    threshold: float = 1e-8,
+    max_iter: int = 10_000,
+    handle_dangling: bool = False,
+    pr0=None,
+    **opts,
+) -> PageRankResult:
+    """Run fn of every plan-staged variant: the inner solve of the core,
+    then :meth:`DecompositionPlan.reconstruct` on the host.
+
+    The inner solve always runs with ``handle_dangling=False``;
+    reconstruction applies the redistribution in closed form, from one
+    device-to-host copy of the core ranks.  A run-time ``d`` other than
+    the plan's re-plans and rebuilds first when the plan's weights encode
+    ``d``.  A full-length warm start ``pr0`` is restricted to the core and
+    rescaled to the core's own ``(1-d)/n_core`` base.  ``pr`` is a float64
+    numpy ``(n,)`` array."""
+    if b.plan.d_dependent and not np.isclose(d, b.plan.d):
+        from repro_torch.graphs.csr import DecompositionPlan
+
+        plan_opts = dict(b.plan_opts, d=d)
+        plan = DecompositionPlan.from_graph(b.plan.full, **plan_opts)
+        bundle = (b.inner.build(plan.core, **b.build_opts)
+                  if plan.core.n else None)
+        b = PlannedBundle(plan=plan, inner=b.inner, bundle=bundle,
+                          build_opts=b.build_opts, plan_opts=plan_opts)
+    if b.bundle is None:  # fully pruned: reconstruction does it all
+        it, err, residuals, sweeps = 0, 0.0, None, None
+        core_pr = np.zeros(0, dtype=np.float64)
+    else:
+        if pr0 is not None:
+            pr0 = np.asarray(pr0, dtype=np.float64)
+            if pr0.shape != (b.plan.n,):
+                raise ValueError(
+                    f"pr0 must be full-length ({b.plan.n},), got {pr0.shape}")
+            opts = dict(opts, pr0=pr0[b.plan.core_index]
+                        * (b.plan.n / b.plan.core.n))
+        r = b.inner.run(b.bundle, d=d, threshold=threshold, max_iter=max_iter,
+                        handle_dangling=False, **opts)
+        it, err, residuals, sweeps = r.iterations, r.err, r.residuals, r.sweeps
+        core_pr = r.pr
+        if isinstance(core_pr, torch.Tensor):
+            core_pr = core_pr.detach().cpu().numpy()
+    pr = b.plan.reconstruct(core_pr, d=d, handle_dangling=handle_dangling)
+    return PageRankResult(pr, it, err, residuals, sweeps)
+
+
+def plan_stats(bundle) -> dict | None:
+    """Decomposition counters of a built bundle (``None`` when unplanned)."""
+    if isinstance(bundle, PlannedBundle):
+        return bundle.plan.stats()
+    return None
 
 
 def solve_variant(

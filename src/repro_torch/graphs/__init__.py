@@ -1,4 +1,9 @@
-from repro_torch.graphs.csr import Graph, graph_from_arrays, inv_out_and_dangling
+from repro_torch.graphs.csr import (
+    DecompositionPlan,
+    Graph,
+    graph_from_arrays,
+    inv_out_and_dangling,
+)
 from repro_torch.graphs.datasets import DATASETS, make_dataset
 from repro_torch.graphs.reorder import (
     ORDERS,
@@ -13,6 +18,7 @@ from repro_torch.graphs.reorder import (
 from repro_torch.graphs.rmat import rmat_edges, rmat_graph
 
 __all__ = [
+    "DecompositionPlan",
     "Graph",
     "graph_from_arrays",
     "inv_out_and_dangling",

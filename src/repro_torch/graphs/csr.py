@@ -115,6 +115,61 @@ class Graph:
             cls_of[u] = keys.setdefault(key, len(keys))
         return cls_of
 
+    def chain_nodes(self) -> np.ndarray:
+        """STIC-D 'chain nodes': (n,) bool mask of in-degree-1/out-degree-1
+        path vertices whose rank is a closed form of the chain head's rank.
+
+        A run of such vertices is an affine function of its first non-chain
+        ancestor, the *head*.  Members of pure indeg-1/outdeg-1 cycles have
+        no head and are excluded: their ranks are genuinely iterative."""
+        indeg = np.diff(self.in_ptr)
+        cand = (indeg == 1) & (self.out_degree == 1)
+        ok = np.zeros(self.n, dtype=bool)
+        if not cand.any():
+            return ok
+        cidx = np.flatnonzero(cand)
+        pred = self.src[self.in_ptr[:-1][cidx]]  # the single in-edge
+        # headed-ness flows down the chains frontier by frontier (a
+        # candidate successor's only predecessor is the frontier vertex);
+        # cycle members never acquire it
+        ok[cidx] = ~cand[pred]
+        out_ptr, out_dst, _ = self.out_csr()
+        frontier = np.flatnonzero(ok)
+        while frontier.size:
+            succ = out_dst[_concat_ranges(out_ptr, frontier)]
+            newly = np.unique(succ[cand[succ] & ~ok[succ]])
+            ok[newly] = True
+            frontier = newly
+        return ok
+
+    def source_chain_nodes(self) -> np.ndarray:
+        """STIC-D 'source chains': (n,) bool mask of indeg-0/outdeg-1
+        vertices.  Their rank is ``base·bias`` exactly, and the run they
+        start folds into its terminal's bias with no contracted edge."""
+        indeg = np.diff(self.in_ptr)
+        return (indeg == 0) & (self.out_degree == 1)
+
+    def dead_nodes(self) -> np.ndarray:
+        """STIC-D 'dead nodes': (n,) bool mask of vertices from which every
+        forward path ends in a sink, the least fixed point of "out-degree
+        0, or all out-neighbours dead".  Cycles are never marked, so the
+        dead set induces a DAG that reconstruction walks topologically."""
+        dead = self.out_degree == 0
+        frontier = np.flatnonzero(dead)
+        if frontier.size == 0:
+            return dead
+        # Kahn-style peel: live_out[u] counts u's edges to live vertices,
+        # so every edge is touched once overall
+        live_out = self.out_degree.astype(np.int64)
+        while frontier.size:
+            srcs = self.src[_concat_ranges(self.in_ptr, frontier)]
+            np.subtract.at(live_out, srcs, 1)
+            touched = np.unique(srcs)
+            newly = touched[(live_out[touched] == 0) & ~dead[touched]]
+            dead[newly] = True
+            frontier = newly
+        return dead
+
 
 def _concat_ranges(ptr: np.ndarray, verts: np.ndarray) -> np.ndarray:
     """Concatenated CSR index ranges ``ptr[v]:ptr[v+1]`` for each v in
@@ -180,3 +235,308 @@ def inv_out_and_dangling(out_degree: np.ndarray, n_pad: Optional[int] = None):
     dang = np.zeros(size, dtype=np.float64)
     dang[:n] = out_degree == 0
     return inv, dang
+
+
+# The solver's DEFAULT_DAMPING (csr is the dependency-free base layer, so
+# it is not imported).  Contracted-edge weights are powers of d, so a plan
+# bakes a concrete d; repro_torch.core.solver.plan_run re-plans when the
+# run-time d differs.
+_DEFAULT_DAMPING = 0.85
+
+
+@dataclasses.dataclass
+class DecompositionPlan:
+    """Build-time STIC-D decomposition (paper Alg 4): prune identical,
+    chain and dead vertices out of the iteration, solve the shrunken
+    *core*, reconstruct the full vector afterwards.
+
+    The core is an ordinary :class:`Graph` that keeps the **full graph's**
+    out-degrees (a core vertex still leaks mass to its pruned
+    out-neighbours), so any registered variant solves it unchanged.
+    Removed, all exactly:
+
+    * **identical**: non-representative members of an identical
+      in-neighbour class whose out-degree matches the representative's;
+      their out-edges are rewired to the representative;
+    * **chain** (:meth:`Graph.chain_nodes`) and **source chain**
+      (:meth:`Graph.source_chain_nodes`): with ``contract=True`` a run
+      ``u→c₁→…→c_k→v`` re-entering the core becomes one weighted core edge
+      ``u→v`` (``d^k`` on unit weights), and the run's teleport
+      contribution is folded into ``v``'s bias; source-chain runs fold the
+      bias and emit no edge.  ``contract=False`` keeps only the suffixes
+      that drain into the dead region;
+    * **dead** (:meth:`Graph.dead_nodes`): restored after the core
+      converges, in topological waves.
+
+    A contracted edge may duplicate an existing core edge; both are kept
+    (parallel edges sum).  Dangling redistribution is a scalar rescale of
+    the plain fixed point, so the core always solves with
+    ``handle_dangling=False`` and :meth:`reconstruct` applies it; that
+    needs a uniform full-graph teleport, so a biased input graph is
+    rejected under ``handle_dangling``."""
+
+    n: int
+    core: Graph  # shrunken graph; out_degree holds the FULL graph's degrees
+    core_index: np.ndarray  # (n_core,) full-graph ids of core vertices
+    full_to_core: np.ndarray  # (n,) core slot per vertex, -1 if pruned
+    struct_pruned: np.ndarray  # (n,) bool: chain/source-chain/dead prune set
+    chain_mask: np.ndarray  # (n,) bool: Graph.chain_nodes()
+    source_mask: np.ndarray  # (n,) bool: Graph.source_chain_nodes()
+    dead_mask: np.ndarray  # (n,) bool: Graph.dead_nodes()
+    ident_members: np.ndarray  # (k,) full ids pruned by identical rewiring
+    ident_reps: np.ndarray  # (k,) their (core) representatives
+    full: Graph  # original graph: reconstruction reads its edges
+    d: float  # damping factor baked into contracted weights and bias folds
+    contracted_m: int  # weighted core edges emitted by chain contraction
+    d_dependent: bool = False  # core weights/bias encode d
+    # the full graph's out-CSR (Graph.out_csr), built once when anything
+    # was struct-pruned: the contraction walk and every reconstruct read it
+    full_out: Optional[tuple] = dataclasses.field(default=None, repr=False)
+
+    @property
+    def pruned(self) -> np.ndarray:
+        """(n,) bool mask of every vertex the core solve does not iterate."""
+        out = self.struct_pruned.copy()
+        out[self.ident_members] = True
+        return out
+
+    @classmethod
+    def from_graph(cls, g: Graph, identical: bool = True, chains: bool = True,
+                   dead: bool = True, contract: bool = True,
+                   d: float = _DEFAULT_DAMPING) -> "DecompositionPlan":
+        n = g.n
+        chain_mask = g.chain_nodes() if chains else np.zeros(n, dtype=bool)
+        dead_mask = g.dead_nodes() if dead else np.zeros(n, dtype=bool)
+        source_mask = (g.source_chain_nodes() if (chains and contract)
+                       else np.zeros(n, dtype=bool))
+        chainlike = chain_mask | source_mask
+        if contract:
+            # every chainlike vertex is prunable: runs re-entering the core
+            # are contracted below, runs draining into the dead region are
+            # inside the (closed) dead set already
+            struct_pruned = chainlike | dead_mask
+        else:
+            # suffix-only closure: drop candidates with an out-edge leaving
+            # the set until none remain
+            s = chain_mask | dead_mask
+            if s.any():
+                escaping = np.unique(g.src[s[g.src] & ~s[g.dst]])
+                while escaping.size:
+                    s[escaping] = False
+                    srcs = np.unique(g.src[_concat_ranges(g.in_ptr, escaping)])
+                    escaping = srcs[s[srcs]]
+            struct_pruned = s
+
+        # identical rewiring: equal out-degree makes the rewired edge's
+        # pr(rep)/outdeg(rep) equal pr(member)/outdeg(member)
+        rewire = np.arange(n, dtype=np.int64)
+        ident_members: list[int] = []
+        ident_reps: list[int] = []
+        if identical and n:
+            cls_of = g.in_neighbor_classes()
+            order = np.argsort(cls_of, kind="stable")
+            bounds = np.flatnonzero(
+                np.r_[True, cls_of[order][1:] != cls_of[order][:-1], True])
+            for lo, hi in zip(bounds[:-1], bounds[1:]):
+                members = order[lo:hi]
+                members = members[~struct_pruned[members]]
+                if members.size < 2:
+                    continue
+                rep = int(members[0])
+                for m in members[1:]:
+                    if g.out_degree[m] == g.out_degree[rep]:
+                        ident_members.append(int(m))
+                        ident_reps.append(rep)
+                        rewire[m] = rep
+        ident_members_a = np.asarray(ident_members, dtype=np.int64)
+        ident_reps_a = np.asarray(ident_reps, dtype=np.int64)
+
+        pruned = struct_pruned.copy()
+        pruned[ident_members_a] = True
+        full_to_core = np.full(n, -1, dtype=np.int64)
+        core_index = np.flatnonzero(~pruned)
+        full_to_core[core_index] = np.arange(core_index.size)
+        full_out = g.out_csr() if struct_pruned.any() else None
+
+        # Chain contraction: walk every maximal chainlike run carrying the
+        # affine closed form pr(c_i) = base·A_i + B_i·pr(u)/od(u)
+        # (A_1 = bias(c_1); B_1 = d·w(u→c_1), or 0 for a source-chain run;
+        # A_{i+1} = bias(c_{i+1}) + d·w_i·A_i; B_{i+1} = d·w_i·B_i).  A run
+        # whose terminal edge c_k→t (weight w_t) lands on a core vertex
+        # folds d·w_t·A_k into t's bias and emits the core edge u→t with
+        # weight w_t·B_k.
+        bias_fold = np.zeros(n, dtype=np.float64)
+        extra_src: list[int] = []
+        extra_dst: list[int] = []
+        extra_w: list[float] = []
+        if contract and chainlike.any():
+            w_full = g.weights
+            beta = g.bias
+            out_ptr, out_dst, out_slot = full_out
+            pred = np.full(n, -1, dtype=np.int64)
+            cidx = np.flatnonzero(chain_mask)
+            pred[cidx] = g.src[g.in_ptr[:-1][cidx]]  # the single in-edge
+            starts = np.flatnonzero(
+                chainlike & (source_mask | ~chainlike[np.maximum(pred, 0)]))
+            for v0 in starts:
+                headless = bool(source_mask[v0])
+                A = 1.0 if beta is None else float(beta[v0])
+                if headless:
+                    B = 0.0
+                else:
+                    w0 = 1.0 if w_full is None else float(w_full[g.in_ptr[v0]])
+                    B = d * w0
+                v = int(v0)
+                while True:
+                    j = out_ptr[v]  # outdeg 1: the single out-edge
+                    succ = int(out_dst[j])
+                    w_out = 1.0 if w_full is None else float(w_full[out_slot[j]])
+                    if not chainlike[succ]:
+                        break
+                    A = (1.0 if beta is None else float(beta[succ])) \
+                        + d * w_out * A
+                    B = d * w_out * B
+                    v = succ
+                if struct_pruned[succ]:
+                    continue  # the run drains into the dead region
+                # a chain-fed vertex is a singleton identical class, so the
+                # terminal is a core vertex
+                assert full_to_core[succ] >= 0, (v0, succ)
+                bias_fold[succ] += d * w_out * A
+                if not headless:
+                    hu = int(rewire[pred[v0]])
+                    assert full_to_core[hu] >= 0, (v0, hu)
+                    extra_src.append(hu)
+                    extra_dst.append(succ)
+                    extra_w.append(w_out * B)
+
+        if pruned.any():
+            # keep edges between core vertices (identical members' sources
+            # rewired); edges out of the struct-pruned set are replaced by
+            # the contracted edges and bias folds above
+            keep = ~pruned[g.dst] & ~struct_pruned[g.src]
+            csrc = full_to_core[rewire[g.src[keep]]]
+            cdst = full_to_core[g.dst[keep]]
+            weights: Optional[np.ndarray] = None
+            if g.weights is not None or extra_w:
+                kept_w = (g.weights[keep] if g.weights is not None
+                          else np.ones(csrc.size, dtype=np.float64))
+                weights = np.r_[kept_w, np.asarray(extra_w, dtype=np.float64)]
+            if extra_src:
+                csrc = np.r_[csrc, full_to_core[np.asarray(extra_src)]]
+                cdst = np.r_[cdst, full_to_core[np.asarray(extra_dst)]]
+            core_bias: Optional[np.ndarray] = None
+            if g.bias is not None or bias_fold.any():
+                core_bias = (g.bias[core_index].copy() if g.bias is not None
+                             else np.ones(core_index.size, dtype=np.float64))
+                core_bias += bias_fold[core_index]
+            core = Graph.from_edges(int(core_index.size), csrc.astype(np.int32),
+                                    cdst.astype(np.int32), weights=weights,
+                                    bias=core_bias)
+            # contributions divide by the FULL graph's out-degree
+            core.out_degree = g.out_degree[core_index].copy()
+        else:
+            core = g
+        return cls(
+            n=n, core=core, core_index=core_index, full_to_core=full_to_core,
+            struct_pruned=struct_pruned, chain_mask=chain_mask,
+            source_mask=source_mask, dead_mask=dead_mask,
+            ident_members=ident_members_a, ident_reps=ident_reps_a, full=g,
+            d=float(d), contracted_m=len(extra_w),
+            d_dependent=bool(extra_w) or bool(bias_fold.any()),
+            full_out=full_out,
+        )
+
+    def stats(self) -> dict:
+        """Vertex and edge counters of the plan (``pruned_chain`` covers
+        headed and source chains; ``core_m = full_m - pruned_edges +
+        contracted_edges``)."""
+        chainlike = self.chain_mask | self.source_mask
+        return {
+            "full_n": self.n,
+            "full_m": self.full.m,
+            "core_n": self.core.n,
+            "core_m": self.core.m,
+            "pruned_identical": int(self.ident_members.size),
+            "pruned_chain": int((self.struct_pruned & chainlike).sum()),
+            "pruned_dead": int((self.struct_pruned & ~chainlike).sum()),
+            "pruned_edges": self.full.m + self.contracted_m - self.core.m,
+            "contracted_edges": self.contracted_m,
+        }
+
+    def reconstruct(self, core_pr, d: float = _DEFAULT_DAMPING,
+                    handle_dangling: bool = False) -> np.ndarray:
+        """The full-length float64 rank vector from the core solution.
+
+        ``core_pr`` is the core solved with its own ``(1-d)/n_core`` base
+        and ``handle_dangling=False``.  It is rescaled by ``n_core / n``,
+        identical members copy their representatives, pruned vertices are
+        computed in topological waves, and with ``handle_dangling`` the
+        whole vector is scaled by ``base/(base − (d/n)·Σ_dangling pr)``,
+        the redistributed fixed point's factor (exact on weighted graphs
+        too)."""
+        g = self.full
+        n = self.n
+        if self.d_dependent and not np.isclose(d, self.d):
+            raise ValueError(
+                f"plan was contracted for d={self.d} but reconstruct got "
+                f"d={d}; re-plan with DecompositionPlan.from_graph(..., d={d})")
+        if handle_dangling and g.bias is not None:
+            raise ValueError(
+                "closed-form dangling redistribution (L1 normalisation) "
+                "requires a uniform full-graph teleport; solve the biased "
+                "graph with handle_dangling=False")
+        pr = np.zeros(n, dtype=np.float64)
+        if n == 0:
+            return pr
+        core_pr = np.asarray(core_pr, dtype=np.float64)
+        if core_pr.shape != (self.core.n,):
+            raise ValueError(
+                f"core_pr has shape {core_pr.shape}, expected ({self.core.n},)")
+        if self.core.n:
+            pr[self.core_index] = core_pr * (self.core.n / n)
+        pr[self.ident_members] = pr[self.ident_reps]
+
+        inv_out, _ = inv_out_and_dangling(g.out_degree)
+        w_full = g.weights
+        beta = g.bias
+        base = (1.0 - d) / n
+        # Kahn pass: unknown_in counts in-edges from not-yet-computed
+        # struct-pruned sources; a vertex is ready at zero
+        struct = self.struct_pruned
+        if struct.any():
+            unknown_in = np.bincount(g.dst[struct[g.src]], minlength=n)
+            done = np.zeros(n, dtype=bool)
+            n_done = 0
+            out_ptr, out_dst, _ = self.full_out
+            ready = np.flatnonzero(struct & (unknown_in == 0))
+            while ready.size:
+                idx = _concat_ranges(g.in_ptr, ready)
+                srcs = g.src[idx]
+                lens = g.in_ptr[ready + 1] - g.in_ptr[ready]
+                seg = np.repeat(np.arange(ready.size), lens)
+                vals = pr[srcs] * inv_out[srcs]
+                if w_full is not None:
+                    vals = vals * w_full[idx]
+                acc = np.bincount(seg, weights=vals, minlength=ready.size)
+                pr[ready] = base * (beta[ready] if beta is not None else 1.0) \
+                    + d * acc
+                done[ready] = True
+                n_done += ready.size
+                succ = out_dst[_concat_ranges(out_ptr, ready)]
+                np.subtract.at(unknown_in, succ, 1)
+                touched = np.unique(succ)
+                ready = touched[struct[touched] & ~done[touched]
+                                & (unknown_in[touched] == 0)]
+            if n_done != int(struct.sum()):
+                raise AssertionError(
+                    "decomposition reconstruction stalled: pruned set has a "
+                    "cycle (chain_nodes/dead_nodes invariant violated)")
+        if handle_dangling:
+            # q = c·pr with c = base/(base − (d/n)·Σ_dang pr): substitute
+            # q = c·pr into q = base·1 + d·W·q + (d/n)(Σ_dang q)·1
+            dang_mass = pr[g.out_degree == 0].sum()
+            denom = base - (d / n) * dang_mass
+            if denom > 0:
+                pr = pr * (base / denom)
+        return pr

@@ -1,6 +1,6 @@
 """Personalized PageRank in the port: the batched solvers on the engine
-(``batched.py``) and top-k extraction (``push.py``; the push solvers come
-with a later slice)."""
+(``batched.py``), and the host forward-push solvers with top-k extraction
+(``push.py``)."""
 from repro_torch.ppr.batched import (
     normalize_seeds,
     ppr_barrier,
@@ -9,14 +9,18 @@ from repro_torch.ppr.batched import (
     ppr_numpy,
     teleport_from_seeds,
 )
-from repro_torch.ppr.push import topk
+from repro_torch.ppr.push import BucketQueue, PushResult, ppr_push, push_residual, topk
 
 __all__ = [
+    "BucketQueue",
+    "PushResult",
     "normalize_seeds",
     "ppr_barrier",
     "ppr_blocked",
     "ppr_nosync",
     "ppr_numpy",
+    "ppr_push",
+    "push_residual",
     "teleport_from_seeds",
     "topk",
 ]

@@ -374,7 +374,8 @@ def test_blocked_adaptive_dangling_l1_is_the_references():
 def test_adaptive_variants_registered():
     assert {v for v in list_variants()
             if get_variant(v).schedule == "adaptive"} == {"nosync_adaptive",
-                                                          "blocked_adaptive"}
+                                                          "blocked_adaptive",
+                                                          "ppr_push_priority"}
     v = get_variant("blocked_adaptive")
     assert (v.layout, v.backend) == ("blocked_gain", "cuda")
     v = get_variant("nosync_adaptive")

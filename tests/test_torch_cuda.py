@@ -701,3 +701,56 @@ def test_serve_on_card_finishes_every_request(cuda):
     rep = serve.run(["--requests", "3", "--max-new", "4"])
     assert rep["finished"] == 3 and rep["tokens"] == 12
     assert flash_counts()["flash_attention"] == 0
+
+
+def _contracting_graph():
+    """A webStanford surrogate whose plan contracts chains: its core is
+    weighted and biased, with the full graph's out-degrees."""
+    from repro_torch.graphs import DecompositionPlan
+
+    g = make_dataset("webStanford", scale_down=64)
+    plan = DecompositionPlan.from_graph(g)
+    assert plan.contracted_m > 0
+    assert plan.core.weights is not None and plan.core.bias is not None
+    return g, plan
+
+
+@pytest.mark.parametrize("inner", ["blocked", "blocked_nosync", "blocked_adaptive"])
+@pytest.mark.parametrize("handle_dangling", [False, True])
+def test_planned_blocked_on_card_matches_oracle(cuda, inner, handle_dangling):
+    from repro_torch.core.solver import plan_build, plan_run
+
+    g, _ = _contracting_graph()
+    ref, _ = pagerank_numpy(g, threshold=1e-12, handle_dangling=handle_dangling)
+    bundle = plan_build(inner)(g, block=64, device=cuda)
+    assert bundle.bundle.n == bundle.plan.core.n < g.n
+    reset_launch_counts()
+    r = plan_run(bundle, threshold=1e-9, handle_dangling=handle_dangling)
+    kernel = "spmv_csr_acc" if inner == "blocked" else "gs_pass"
+    assert launch_counts()[kernel] == r.iterations > 0
+    assert r.pr.shape == (g.n,) and r.pr.dtype == np.float64
+    assert l1_norm(r.pr, ref) < 1e-5
+
+
+def test_gs_pass_on_plan_core_operands(cuda):
+    """One pass on a plan core's operands (contracted d^k weights, folded
+    biases, full out-degrees), under a per-lane and a whole-block freeze."""
+    _, plan = _contracting_graph()
+    core = plan.core
+    bg = BlockedGraph.build(core, block=64, device=cuda)
+    assert bg.weights is not None and bg.bias is not None
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    pr = torch.rand(bg.vmask.shape, generator=gen, device=cuda) * bg.vmask / core.n
+    d = 0.85
+    params = torch.tensor([(1 - d) / core.n, d, 0.0], device=cuda)
+    lanes = (torch.rand(bg.vmask.shape, generator=gen, device=cuda) < 0.1) \
+        & (bg.vmask > 0)
+    blocks = torch.as_tensor(block_masks(bg.n_blocks)["runs of 1 and 9"],
+                             device=cuda)[:, None].expand(bg.n_blocks, bg.block)
+    for frozen in (lanes, blocks.contiguous()):
+        args = (pr, bg.inv_out, bg.vmask, params, bg.in_ptr, bg.src, bg.weights,
+                bg.bias, frozen)
+        out, ref = gs_pass(*args), gs_pass_ref(*args)
+        torch.cuda.synchronize()
+        assert _rel_err(out, ref) <= RTOL
+        assert torch.equal(out[frozen], pr[frozen])

@@ -53,6 +53,8 @@ ALL_VARIANTS = VERTEX_VARIANTS + ("blocked", "blocked_nosync", "blocked_nosync_o
 SLICE_7_VARIANTS = ("barrier_edge", "barrier_identical", "nosync_adaptive",
                     "blocked_adaptive")
 PPR_VARIANTS = ("ppr_barrier", "ppr_nosync", "ppr_blocked")
+SLICE_8_VARIANTS = ("barrier_sticd", "nosync_sticd", "ppr_push",
+                    "ppr_push_priority")
 
 
 @pytest.fixture(autouse=True)
@@ -169,8 +171,8 @@ def test_engine_state_fields_match_reference():
 def test_registry_lists_the_slice():
     names = set(list_variants())
     assert names == {"sequential", *ALL_VARIANTS, *PPR_VARIANTS,
-                     *SLICE_7_VARIANTS}
-    assert len(names) == 15
+                     *SLICE_7_VARIANTS, *SLICE_8_VARIANTS}
+    assert len(names) == 19
     for name in names:
         v = get_variant(name)
         assert v.description and v.layout and v.backend in BACKENDS
@@ -182,8 +184,17 @@ def test_registry_lists_the_slice():
 def test_registry_does_not_touch_the_reference():
     from repro.core.solver import list_variants as ref_list_variants
 
-    assert not {"blocked", "blocked_nosync", "blocked_nosync_opt",
-                "blocked_adaptive", "ppr_blocked"} & set(ref_list_variants())
+    cuda_names = {"blocked", "blocked_nosync", "blocked_nosync_opt",
+                  "blocked_adaptive", "ppr_blocked"}
+    pallas_names = {"pallas", "pallas_nosync", "pallas_nosync_opt",
+                    "pallas_adaptive", "ppr_pallas"}
+    ref_names, names = set(ref_list_variants()), set(list_variants())
+    assert not cuda_names & ref_names
+    # 19 of the reference's 22: the kernel variants under their port names,
+    # every other name shared; only the distributed solvers are left
+    assert names - cuda_names == ref_names - pallas_names - {
+        "distributed_barrier", "distributed_stale", "distributed_topk"}
+    assert len(ref_names) == 22
 
 
 @pytest.mark.parametrize("bad", [dict(backend="jax"), dict(description=""),
@@ -241,7 +252,7 @@ def test_launcher_runs_the_solve_path_on_cpu(capsys):
     assert "blocked_nosync_opt" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["query"], ["serve"], ["build"],
+@pytest.mark.parametrize("argv", [["--store=/tmp/x"], ["serve"], ["build"],
                                   ["--store", "/tmp/x"], ["--ckpt=/tmp/x"]])
 def test_launcher_rejects_later_slices(argv):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -78,12 +78,33 @@ Phases, one or more lines each; any failure exits non-zero:
                make_query_stream(n, 32, seed=0) at threshold 1e-6: every
                top-k is the oracle's, q/s and latency; the torch backend
                answers with the same top-k;
-11. push    — ppr_push and ppr_push_priority (host float64) at rmax
+11. dynamic — IncrementalPageRank (leaky convention, tol 1e-8): the
+               blocked_nosync initial solve (gs_pass) and its float64
+               refinement, 4 sink-bounded and 2 uniform batches of 250
+               ops, one forced fallback (push budget 0: the warm global
+               solve, every gs_pass held against gs_pass_ref on the
+               updated operands) and one more, traced (device busy
+               share), then a blocked (spmv_csr_acc) initial
+               solve and forced fallback, each spmv_csr_acc call held
+               against its plain version; every batch within L1 1e-6 of
+               a float64 oracle of the updated graph and within its
+               certificate plus the oracle's error, every sink-bounded
+               batch a push touching under 10 % of the vertices;
+12. ppr serve — the launcher's serve --backend cuda with 500 live edge
+               updates in 2 batches (8 slots, 32 queries, threshold
+               1e-6), all at once under the profiler (device busy share),
+               then as a closed loop at half the q/s the first run
+               reached (the only run that answers on the graph of the
+               first batch alone): every answer on an updated graph,
+               rebuilt from the seeded update stream, is its float64
+               oracle's top-k, and gs_pass_multi launches on the backend
+               rebuilt for each updated graph;
+13. push    — ppr_push and ppr_push_priority (host float64) at rmax
                1e-8 from the distinct seed sets of the engine's first 8
                queries: rounds, pushes, the L1 certificate, wall; every
                estimate at or below the oracle, every top-10 the oracle's
                up to the certificate;
-12. flash   — flash_attention against its plain version over the
+14. flash   — flash_attention against its plain version over the
                reference's test matrix (f32/bf16 x 3 head layouts x
                causal / window 64 / full, s 256, dh 64), ragged and
                sq != sk lengths, and qwen2-vl-2b's shape (b 2, hq 12,
@@ -92,19 +113,20 @@ Phases, one or more lines each; any failure exits non-zero:
                float32 plain result rounded to bf16; times beside the plain version, SDPA
                and the bound (and, in bf16, the floor of the kernel's own
                tensor-core work: P·V as P_TERMS bf16 products);
-13. prefill — qwen2-vl-2b at full width (1.54 B parameters, bf16, random
+15. prefill — qwen2-vl-2b at full width (1.54 B parameters, bf16, random
                from a seeded generator): forward at b 2, s 4096 launches
                the kernel once per layer (the main path); tokens/s over
                three runs, the trace; f32 kernel route against the plain
                route entry-wise; bf16 routes against the f32 forward;
-14. decode  — 128 teacher-forced f32 decode steps against the prefill's
+16. decode  — 128 teacher-forced f32 decode steps against the prefill's
                logits, ms per step (no kernel on this path);
-15. serve   — repro_torch.launch.serve --preset full: every request
+17. serve   — repro_torch.launch.serve --preset full: every request
                finishes (no kernel on this path); then the same requests
                and loop in float32 on the decode phase's weights, every
                token the engine picks held against forward's argmax over
                the tokens its slot was fed.
 
+Each phase ends with its host wall on a line ``phase <name>: wall_s=``.
 It then prints one JSON line naming every kernel (its ``timed_by`` says
 how each of its times was taken: ``"trace"`` or ``"events"``), the
 nvidia-smi line, and last the JSON device record.  Without a CUDA device, or without the port's
@@ -229,6 +251,24 @@ STICD_PAIRS = (("barrier_sticd", "barrier"), ("nosync_sticd", "nosync"),
 STICD_REPS = 5  # warmed solves timed per variant; their median wall is reported
 PUSH_RMAX = 1e-8
 PUSH_TOPK = 10
+# dynamic updates (leaky convention only): IncrementalPageRank's tol, the
+# ops a batch, the reference's locality bar for sink-bounded batches
+# (benchmarks/bench_dynamic.py) and the L1 every batch must reach
+DYN_TOL = 1e-8
+DYN_OPS = 250
+LOCALIZED_TOUCHED_MAX = 0.10
+DYN_L1 = 1e-6
+# the global float64 oracle of an updated graph stops when a step moves
+# the vector by at most this in L1; it is then within d / (1 - d) of it
+GLOBAL_ORACLE_STEP = 1e-13
+# serve with live updates: the launcher's arguments (no dangling
+# redistribution: updates keep the leaky convention)
+SERVE_UPDATES, SERVE_BATCHES, SERVE_SEED = 500, 2, 0
+SERVE_ARGV = ["serve", "--backend", "cuda", "--dataset", "webStanford",
+              "--scale-down", "1", "--slots", str(PPR_ROWS), "--queries",
+              str(ENGINE_QUERIES), "--threshold", str(ENGINE_THRESHOLD),
+              "--updates", str(SERVE_UPDATES), "--update-batches",
+              str(SERVE_BATCHES), "--seed", str(SERVE_SEED)]
 
 
 class SmokeFailure(RuntimeError):
@@ -245,6 +285,14 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def phase_wall(name: str):
+    """Print the host wall of the phase run inside, on a line of its own."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: wall_s={time.perf_counter() - t0:.1f}", flush=True)
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -672,11 +720,12 @@ def checked_passes(tag):
 
     def checked(pr, *args):
         out = real(pr, *args)
-        frozen = args[-1]
+        frozen = args[-1]  # None where no schedule freezes lanes
         name = f"gs_pass ({tag}, pass {len(seen['frozen']) + 1})"
         _, _, ent = check_agreement(name, out, gs_pass_ref(pr, *args))
-        check(torch.equal(out[frozen], pr[frozen]), f"{name} moved a frozen lane")
-        seen["frozen"].append(int(frozen[:, 0].sum()))
+        if frozen is not None:
+            check(torch.equal(out[frozen], pr[frozen]), f"{name} moved a frozen lane")
+        seen["frozen"].append(0 if frozen is None else int(frozen[:, 0].sum()))
         seen["entry_rel"] = max(seen["entry_rel"], ent)
         return out
 
@@ -685,6 +734,32 @@ def checked_passes(tag):
         yield seen
     finally:
         ops.gs_pass = real
+
+
+@contextlib.contextmanager
+def checked_spmv(tag):
+    """Hold every spmv_csr_acc call of the blocked path against
+    spmv_csr_acc_ref on the same operands while a solve runs, within the
+    entry bound (the wrapper still launches and counts).  Yields the
+    number of calls held and the worst entry-wise error."""
+    from repro_torch.kernels.spmv import ops, spmv_csr_acc_ref
+
+    real = ops.spmv_csr_acc
+    seen = {"calls": 0, "entry_rel": 0.0}
+
+    def checked(contrib, *args):
+        out = real(contrib, *args)
+        seen["calls"] += 1
+        _, _, ent = check_agreement(f"spmv_csr_acc ({tag}, call {seen['calls']})",
+                                    out, spmv_csr_acc_ref(contrib, *args))
+        seen["entry_rel"] = max(seen["entry_rel"], ent)
+        return out
+
+    ops.spmv_csr_acc = checked
+    try:
+        yield seen
+    finally:
+        ops.spmv_csr_acc = real
 
 
 def adaptive_phase(g, dev):
@@ -881,8 +956,10 @@ def profile_phase(g, gb, dev):
 ORACLE_THRESHOLD = 1e-12  # the PPR oracle's last step, max norm
 
 
-def ppr_oracle(g, seed_sets, d=0.85, threshold=ORACLE_THRESHOLD, max_iter=2000):
-    """Float64 PPR with dangling mass re-teleported onto each row: a scipy
+def ppr_oracle(g, seed_sets, d=0.85, threshold=ORACLE_THRESHOLD, max_iter=2000,
+               dangling=True):
+    """Float64 PPR with dangling mass re-teleported onto each row (or, with
+    ``dangling=False``, dropped: the leaky convention): a scipy
     sparse power iteration over all rows at once, independent of the port.
     Returns ``{seed key: (n,) row}``, keyed by the sorted seed set.  The
     iteration is a d-contraction in L1, so a row whose last step moved
@@ -897,7 +974,7 @@ def ppr_oracle(g, seed_sets, d=0.85, threshold=ORACLE_THRESHOLD, max_iter=2000):
     inv = np.where(g.out_degree > 0, 1.0 / np.maximum(g.out_degree, 1), 0.0)
     vals = inv[g.src] if g.weights is None else inv[g.src] * g.weights
     a = sp.csr_matrix((vals, (g.dst, g.src)), shape=(g.n, g.n))
-    dang = (g.out_degree == 0).astype(np.float64)
+    dang = (g.out_degree == 0).astype(np.float64) * dangling
     pr = t.copy()
     for it in range(1, max_iter + 1):
         new = (1.0 - d) * t + d * (a @ pr) + d * (dang @ pr)[None, :] * t
@@ -1050,6 +1127,237 @@ def engine_phase(g, dev, oracle):
               f"engine: qid {qid} top-k differs between the backends")
     print("engine: the torch backend gives the same top-k for every query",
           flush=True)
+
+
+def global_oracle(g, pr0=None, d=0.85, max_iter=5000):
+    """Float64 leaky PageRank of ``g`` by a scipy sparse power iteration
+    (independent of the port), from ``pr0`` (the previous graph's oracle
+    saves iterations; the fixed point does not depend on the start), until
+    a step moves at most GLOBAL_ORACLE_STEP in L1.  Returns the vector and
+    its L1 error bound, d / (1 - d) times the last step."""
+    import scipy.sparse as sp
+
+    inv = np.where(g.out_degree > 0, 1.0 / np.maximum(g.out_degree, 1), 0.0)
+    a = sp.csr_matrix((inv[g.src], (g.dst, g.src)), shape=(g.n, g.n))
+    base = (1.0 - d) / g.n
+    pr = np.full(g.n, 1.0 / g.n) if pr0 is None else np.array(pr0, np.float64)
+    for it in range(1, max_iter + 1):
+        new = base + d * (a @ pr)
+        step = np.abs(new - pr).sum()
+        pr = new
+        if step <= GLOBAL_ORACLE_STEP:
+            break
+    check(step <= GLOBAL_ORACLE_STEP,
+          f"global oracle: L1 step {step:.1e} after {max_iter} iterations")
+    return pr, d / (1 - d) * step, it
+
+
+def dynamic_phase(g, dev):
+    """IncrementalPageRank at full size on the card, leaky convention:
+    blocked_nosync (gs_pass) for the initial solve, 4 sink-bounded and 2
+    uniform batches of DYN_OPS ops and one forced fallback (push budget 0)
+    with every gs_pass held against gs_pass_ref on the updated operands,
+    and one more, traced; then blocked (spmv_csr_acc) for one more forced
+    fallback, each call
+    held against spmv_csr_acc_ref.  Every batch's ranks are held to a
+    float64 oracle of the updated graph: L1 < DYN_L1 and within the
+    batch's certificate plus the oracle's own error.  Returns the launches
+    by path."""
+    from repro_torch.core.dynamic import IncrementalPageRank, random_update_batch
+    from repro_torch.kernels.spmv import launch_counts, reset_launch_counts
+
+    launches = {"gs_pass": {}, "spmv_csr_acc": {}}
+    oracle = {"pr": None}
+
+    def held(tag, ipr, rep, wall, counts, extra=""):
+        t0 = time.perf_counter()
+        pr, err, it = global_oracle(ipr.g, oracle["pr"])
+        oracle["pr"] = pr
+        o_s = time.perf_counter() - t0
+        l1 = float(np.abs(ipr.pagerank - pr).sum())
+        cert = ipr.certificate
+        check(cert <= DYN_TOL, f"dynamic {tag}: certificate {cert:.3e} not met ({rep})")
+        check(l1 < DYN_L1, f"dynamic {tag}: L1 {l1:.3e} to the oracle >= {DYN_L1:g}")
+        check(l1 <= cert + err,
+              f"dynamic {tag}: L1 {l1:.3e} > certificate {cert:.3e} + oracle "
+              f"error {err:.1e}")
+        print(f"dynamic {tag}: mode={rep.mode} ops={rep.num_ops} "
+              f"rounds={rep.rounds} pushes={rep.pushes} "
+              f"touched_frac={rep.touched_frac:.4f} l1_cert={rep.l1_cert:.3e} "
+              f"{extra}l1_to_oracle={l1:.3e} (oracle error <= {err:.1e}, "
+              f"{it} iterations, {o_s:.2f}s) wall_s={wall:.4f} launches={counts}",
+              flush=True)
+
+    def start(variant):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ipr = IncrementalPageRank(g, variant=variant, tol=DYN_TOL, device=dev)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        kernel = "gs_pass" if variant == "blocked_nosync" else "spmv_csr_acc"
+        check(counts[kernel] > 0, f"dynamic {variant}: the initial solve "
+              f"launched no {kernel}")
+        launches[kernel][f"dynamic initial solve ({variant})"] = counts[kernel]
+        r = ipr.init_report
+        print(f"dynamic {variant} initial: n={g.n} m={g.m} tol={DYN_TOL:g} "
+              f"iterations={r['iterations']} solve_s={r['solve_s']:.4f} "
+              f"float64 refine: rounds={r['refine_rounds']} "
+              f"pushes={r['refine_pushes']} refine_s={r['refine_s']:.3f} "
+              f"certificate={ipr.certificate:.3e} wall_s={wall:.3f} "
+              f"launches={counts}", flush=True)
+        return ipr, kernel
+
+    def forced_fallback(ipr, kernel, rng, checker):
+        ipr.max_push_rounds = 0  # starves the push: the warm global solve runs
+        adds, dels = random_update_batch(ipr.g, rng, DYN_OPS)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with checker(f"dynamic fallback, {ipr.variant}") as seen:
+            rep = ipr.apply(adds=adds, dels=dels)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        check(rep.mode == "fallback" and counts[kernel] > 0,
+              f"dynamic fallback {ipr.variant}: mode {rep.mode}, {kernel} "
+              f"launched {counts[kernel]} times")
+        launches[kernel][f"dynamic forced fallback ({ipr.variant})"] = counts[kernel]
+        # the starved budget also skipped the fallback's refinement: run it
+        ipr.max_push_rounds = 10_000
+        t1 = time.perf_counter()
+        r2, p2 = ipr._refine()
+        refine_s = time.perf_counter() - t1
+        calls = seen["calls"] if "calls" in seen else len(seen["frozen"])
+        check(calls > 0, f"dynamic fallback {ipr.variant}: no {kernel} call held")
+        held(f"fallback ({ipr.variant})", ipr, rep, wall, counts,
+             extra=f"then refine rounds={r2} pushes={p2} refine_s={refine_s:.3f} "
+                   f"certificate={ipr.certificate:.3e}; {calls} {kernel} calls "
+                   f"within the entry bound of the plain version (worst "
+                   f"{seen['entry_rel']:.3e}); ")
+
+    rng = np.random.default_rng(0)
+    ipr, kernel = start("blocked_nosync")
+    for i, localized in enumerate([True] * 4 + [False] * 2):
+        adds, dels = random_update_batch(ipr.g, rng, DYN_OPS, localized=localized)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = ipr.apply(adds=adds, dels=dels)
+        wall = time.perf_counter() - t0
+        tag = f"batch {i + 1} ({'localized' if localized else 'uniform'})"
+        check(rep.converged, f"dynamic {tag}: not converged ({rep})")
+        if localized:
+            check(rep.mode == "push" and rep.touched_frac < LOCALIZED_TOUCHED_MAX,
+                  f"dynamic {tag}: mode {rep.mode}, touched_frac "
+                  f"{rep.touched_frac:.4f} (bar {LOCALIZED_TOUCHED_MAX})")
+        held(tag, ipr, rep, wall, launch_counts())
+    forced_fallback(ipr, kernel, rng, checked_passes)
+    # one more forced fallback, traced and unchecked: how its wall splits
+    # between the host repair and the device solve; its whole cost (batch
+    # draw, traced fallback, refine, oracle) is printed with it
+    t_traced = time.perf_counter()
+    ipr.max_push_rounds = 0
+    adds, dels = random_update_batch(ipr.g, rng, DYN_OPS)
+    reset_launch_counts()
+    rep, wall_ms, busy_ms, rows = traced(lambda: ipr.apply(adds=adds, dels=dels))
+    counts = launch_counts()
+    check(rep.mode == "fallback" and counts[kernel] > 0,
+          f"dynamic traced fallback: mode {rep.mode}, {counts[kernel]} {kernel} launches")
+    print_trace("dynamic fallback (blocked_nosync)", wall_ms, busy_ms, rows,
+                extra=f"gs_pass launches={counts[kernel]} ")
+    ipr.max_push_rounds = 10_000
+    t1 = time.perf_counter()
+    r2, p2 = ipr._refine()
+    refine_s = time.perf_counter() - t1
+    held("traced fallback (blocked_nosync)", ipr, rep, wall_ms / 1e3, counts,
+         extra=f"then refine rounds={r2} pushes={p2} refine_s={refine_s:.3f}; ")
+    print(f"dynamic traced fallback: cost_s={time.perf_counter() - t_traced:.1f} "
+          f"(batch draw, traced fallback, refine, oracle)", flush=True)
+    ipr, kernel = start("blocked")
+    forced_fallback(ipr, kernel, rng, checked_spmv)
+    return launches
+
+
+def ppr_serve_phase(g):
+    """The launcher's serve with live updates at full size on the cuda
+    backend: first all at once (SERVE_ARGV) under the profiler (the
+    launcher call end to end, the surrogate's build included), then as a
+    closed loop at half the q/s the first run reached, with the same
+    updates.  The graph of each version is rebuilt from ``g`` by replaying
+    the launcher's seeded update stream.  Every response solved or served
+    after an update batch must be the float64 oracle's top-k on the graph
+    it answers (one oracle a graph, over the seed sets of both runs), and
+    gs_pass_multi must launch on the backend rebuilt for every updated
+    graph that served a solve.  The all-at-once run applies both batches
+    back to back, as the reference's serve does, so it answers nothing on
+    version 1: that version is covered by the closed loop alone.  Returns
+    the launches on the updated graphs by path."""
+    from repro_torch.core.dynamic import random_update_batch
+    from repro_torch.launch import pagerank_run
+    from repro_torch.ppr import topk
+
+    runs = {}
+    t0 = time.perf_counter()
+    rep, wall_ms, busy_ms, rows = traced(lambda: pagerank_run.run(SERVE_ARGV))
+    print_trace("ppr serve --updates", wall_ms, busy_ms, rows)
+    runs["serve --updates"] = rep
+    qps = rep["qps"] / 2
+    runs["serve --updates --qps"] = pagerank_run.run(SERVE_ARGV + ["--qps", f"{qps:.3f}"])
+    serve_s = time.perf_counter() - t0
+    graphs = [g]
+    rng = np.random.default_rng(SERVE_SEED)
+    for _ in range(SERVE_BATCHES):
+        adds, dels = random_update_batch(graphs[-1], rng, SERVE_UPDATES // SERVE_BATCHES)
+        graphs.append(graphs[-1].apply_updates(adds=adds, dels=dels)[0])
+    for path, rep in runs.items():
+        check(rep["applied"] == SERVE_UPDATES and len(rep["launches"]) == SERVE_BATCHES + 1
+              and (rep["n"], rep["m"]) == (graphs[-1].n, graphs[-1].m),
+              f"{path}: applied {rep['applied']} ops in {len(rep['launches']) - 1} "
+              f"batches to n={rep['n']} m={rep['m']}, not the seeded stream's "
+              f"n={graphs[-1].n} m={graphs[-1].m}")
+    t0 = time.perf_counter()
+    held = 0
+    worst = 0.0
+    for v in range(1, SERVE_BATCHES + 1):
+        answers = [r for rep in runs.values()
+                   for r, ver in zip(rep["responses"], rep["versions"]) if ver == v]
+        check(len(answers) > 0, f"ppr serve: no answer on graph version {v}")
+        oracle = ppr_oracle(graphs[v], [r.seeds for r in answers], dangling=False)
+        for r in answers:
+            ref = oracle[_key(r.seeds)]
+            want, _ = topk(ref, r.indices.size)
+            check(_same_topk(r.indices, want, ref),
+                  f"ppr serve: qid {r.qid} (graph version {v}) top-k "
+                  f"{r.indices.tolist()} is not the updated graph's {want.tolist()}")
+            worst = max(worst, float(np.abs(r.values - ref[r.indices]).max()))
+            held += 1
+    check(worst <= TOPK_VALUE_TOL,
+          f"ppr serve: top-k values off the updated oracle by {worst:.3e}")
+    oracle_s = time.perf_counter() - t0
+    launches = {}
+    for path, rep in runs.items():
+        n = 0
+        for v in range(1, SERVE_BATCHES + 1):
+            solved = any(not r.cached for r, ver in zip(rep["responses"], rep["versions"])
+                         if ver == v)
+            got = rep["launches"][v]["gs_pass_multi"]
+            check(got > 0 or not solved,
+                  f"{path}: no gs_pass_multi launch on graph version {v}")
+            n += got
+        launches[path] = n
+        st = rep["stats"]["counters"]
+        print(f"ppr {path}: n={rep['n']} m={rep['m']} applied={rep['applied']} "
+              f"wall_s={rep['wall_s']:.4f} qps={rep['qps']:.2f} "
+              f"p50_ms={rep['p50_ms']:.3f} p99_ms={rep['p99_ms']:.3f} "
+              f"warm_hits={rep['warm_hits']} cache_hits={st.get('cache_hits', 0)} "
+              f"invalidations={rep['invalidations']} responses by graph version "
+              f"{[rep['versions'].count(v) for v in range(SERVE_BATCHES + 1)]} "
+              f"gs_pass_multi launches by version "
+              f"{[c['gs_pass_multi'] for c in rep['launches']]}", flush=True)
+    print(f"ppr serve: {held} answers on updated graphs are the oracle's top-k "
+          f"(values within {worst:.2e}); serve runs {serve_s:.1f}s (the first "
+          f"traced), oracles {oracle_s:.1f}s", flush=True)
+    return launches
 
 
 def sticd_phase(g, dev):
@@ -1674,29 +1982,47 @@ def main() -> int:
     print(f"data: webStanford surrogate n={g.n} m={g.m} "
           f"dangling={int((g.out_degree == 0).sum())}", flush=True)
 
-    stats = kernel_phase(g, gw, dev)
-    launches = solve_phase(g)
-    gb = adaptive_phase(g, dev)
-    repeat_phase(g, gb, dev)
-    profile_phase(g, gb, dev)
+    with phase_wall("kernels"):
+        stats = kernel_phase(g, gw, dev)
+    with phase_wall("solve"):
+        launches = solve_phase(g)
+    with phase_wall("adaptive"):
+        gb = adaptive_phase(g, dev)
+    with phase_wall("repeat"):
+        repeat_phase(g, gb, dev)
+    with phase_wall("profile"):
+        profile_phase(g, gb, dev)
     del gb
-    for kernel, paths in sticd_phase(g, dev).items():
-        launches[kernel].update(paths)
+    with phase_wall("sticd"):
+        for kernel, paths in sticd_phase(g, dev).items():
+            launches[kernel].update(paths)
     from repro_torch.serving import make_query_stream
 
-    # the engine's queries and the first rows of every batched solve are a
-    # prefix of this stream
-    queries = make_query_stream(g.n, max(ENGINE_QUERIES, PPR_WIDE_ROWS), seed=0)
-    oracle = ppr_oracle(g, [q.seeds for q in queries] + [()])
-    launches["gs_pass_multi"] = ppr_phase(g, dev, oracle)
-    engine_phase(g, dev, oracle)
-    # the distinct seed sets of the first PPR_ROWS queries of the engine's
-    # stream: each push solve is host numpy and takes seconds at full size
-    push_phase(g, oracle, sorted({_key(q.seeds) for q in queries[:PPR_ROWS]}))
+    with phase_wall("ppr"):
+        # the engine's queries and the first rows of every batched solve
+        # are a prefix of this stream
+        queries = make_query_stream(g.n, max(ENGINE_QUERIES, PPR_WIDE_ROWS), seed=0)
+        oracle = ppr_oracle(g, [q.seeds for q in queries] + [()])
+        launches["gs_pass_multi"] = ppr_phase(g, dev, oracle)
+    with phase_wall("engine"):
+        engine_phase(g, dev, oracle)
+    with phase_wall("dynamic"):
+        for kernel, paths in dynamic_phase(g, dev).items():
+            launches[kernel].update(paths)
+    with phase_wall("ppr serve"):
+        launches["gs_pass_multi"].update(ppr_serve_phase(g))
+    with phase_wall("push"):
+        # the distinct seed sets of the first PPR_ROWS queries of the
+        # engine's stream: each push solve is host numpy and takes seconds
+        # at full size
+        push_phase(g, oracle, sorted({_key(q.seeds) for q in queries[:PPR_ROWS]}))
     del g, gw, oracle
-    flash = flash_kernel_phase(dev)
-    launches["flash_attention"], cfg32, params32 = lm_phase(dev)
-    serve_phase(cfg32, params32)
+    with phase_wall("flash"):
+        flash = flash_kernel_phase(dev)
+    with phase_wall("prefill and decode"):
+        launches["flash_attention"], cfg32, params32 = lm_phase(dev)
+    with phase_wall("serve"):
+        serve_phase(cfg32, params32)
 
     replaces = {"spmv_csr_acc": "src/repro/kernels/spmv/kernel.py:67",
                 "gs_pass": "src/repro/kernels/spmv/kernel.py:181",

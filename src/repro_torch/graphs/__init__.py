@@ -1,6 +1,7 @@
 from repro_torch.graphs.csr import (
     DecompositionPlan,
     Graph,
+    GraphDelta,
     graph_from_arrays,
     inv_out_and_dangling,
 )
@@ -20,6 +21,7 @@ from repro_torch.graphs.rmat import rmat_edges, rmat_graph
 __all__ = [
     "DecompositionPlan",
     "Graph",
+    "GraphDelta",
     "graph_from_arrays",
     "inv_out_and_dangling",
     "DATASETS",

@@ -22,6 +22,55 @@ from typing import Optional
 import numpy as np
 
 
+def _update_pairs(pairs, name: str, n: int) -> np.ndarray:
+    """Validate one :meth:`Graph.apply_updates` operand into ``(k, 2)``
+    int64 ``(src, dst)`` rows; ``None`` or empty become a zero-row array."""
+    if pairs is None:
+        return np.zeros((0, 2), dtype=np.int64)
+    arr = np.asarray(pairs, dtype=np.int64)
+    if arr.size == 0:
+        return np.zeros((0, 2), dtype=np.int64)
+    if arr.ndim != 2 or arr.shape[1] != 2:
+        raise ValueError(f"{name} must be a (k, 2) array of (src, dst) pairs")
+    if arr.min() < 0 or arr.max() >= n:
+        raise ValueError(f"{name} endpoint out of range [0, {n})")
+    return arr
+
+
+@dataclasses.dataclass
+class GraphDelta:
+    """Record of one :meth:`Graph.apply_updates` batch: the applied edge
+    lists (in the dst-major order they were merged in), the vertices whose
+    out- or in-edge sets changed, and the dangling transitions (a vertex
+    losing its last out-edge turns its column of the walk matrix to zero).
+    Incremental consumers localize their repair with it: the residual
+    correction of :class:`repro_torch.core.dynamic.IncrementalPageRank`,
+    :meth:`DecompositionPlan.touched_by` and the serving caches."""
+
+    n: int
+    added: np.ndarray  # (ka, 2) int64 (src, dst), dst-major applied order
+    deleted: np.ndarray  # (kd, 2) int64, dst-major applied order
+    added_weights: Optional[np.ndarray]  # (ka,) float64; None when unweighted
+    touched_src: np.ndarray  # unique vertices whose out-edge set changed
+    touched_dst: np.ndarray  # unique vertices whose in-edge set changed
+    newly_dangling: np.ndarray  # out-degree dropped >0 -> 0
+    undangled: np.ndarray  # out-degree rose 0 -> >0
+
+    @property
+    def num_ops(self) -> int:
+        return int(self.added.shape[0] + self.deleted.shape[0])
+
+    def touched_vertices(self) -> np.ndarray:
+        """Unique vertices appearing as either endpoint of any update."""
+        return np.unique(np.r_[self.touched_src, self.touched_dst])
+
+    def touched_dst_blocks(self, block: int) -> np.ndarray:
+        """Sorted unique dst blocks (width ``block``) the updates landed in."""
+        if self.touched_dst.size == 0:
+            return np.zeros(0, dtype=np.int64)
+        return np.unique(self.touched_dst // block)
+
+
 @dataclasses.dataclass
 class Graph:
     """Host-side immutable graph in dst-sorted COO + CSR-by-destination.
@@ -81,6 +130,127 @@ class Graph:
         np.cumsum(np.bincount(dst, minlength=n), out=in_ptr[1:])
         return cls(n=n, src=src, dst=dst, out_degree=out_degree, in_ptr=in_ptr,
                    weights=weights, bias=bias)
+
+    def apply_updates(self, adds=None, dels=None,
+                      add_weights: Optional[np.ndarray] = None
+                      ) -> tuple["Graph", GraphDelta]:
+        """Apply an edge-update batch and return ``(new_graph, delta)``.
+
+        ``adds``/``dels`` are ``(k, 2)`` arrays of ``(src, dst)`` pairs over
+        the existing vertex set (``n`` never changes).  The new graph is
+        derived incrementally: the dst-sorted edge arrays are patched by one
+        O(m + k) merge (deleted positions and insert positions found by
+        binary search), and ``out_degree`` and ``in_ptr`` are shifted by
+        per-endpoint deltas, never recounted from ``src`` (a plan's core
+        keeps the full graph's out-degrees, which its own ``src`` does not
+        give).  ``bias`` is carried through; ``self`` is left unmodified.
+        The new dst-sorted in-CSR is the layout every device bundle reads,
+        so there are no tiles to patch.
+
+        * Deletions apply first, then additions: a batch may delete an edge
+          and add it back (a weight update on weighted graphs).
+        * Deleting an edge that does not exist raises ``ValueError``, as does
+          deleting the same edge twice in one batch.
+        * Adding an edge twice in one batch raises; adding an edge that
+          exists after the batch's deletions raises on unweighted graphs.
+          Weighted graphs permit parallel edges (the STIC-D contraction
+          emits them); a delete removes the first copy in canonical order.
+        * ``add_weights`` (per added edge, default all ones) is accepted on
+          weighted graphs only."""
+        n = self.n
+        adds_a = _update_pairs(adds, "adds", n)
+        dels_a = _update_pairs(dels, "dels", n)
+        if add_weights is not None:
+            if self.weights is None:
+                raise ValueError("add_weights given but the graph is unweighted")
+            add_w = np.asarray(add_weights, dtype=np.float64)
+            if add_w.shape != (adds_a.shape[0],):
+                raise ValueError(
+                    f"add_weights must have shape ({adds_a.shape[0]},), "
+                    f"got {add_w.shape}")
+        elif self.weights is not None:
+            add_w = np.ones(adds_a.shape[0], dtype=np.float64)
+        else:
+            add_w = None
+
+        src, dst = self.src, self.dst
+        m = self.m
+        key = dst.astype(np.int64) * n + src  # ascending: the canonical order
+
+        # deletions: locate each edge by binary search, check, mask out
+        del_order = np.argsort(dels_a[:, 1] * n + dels_a[:, 0], kind="stable")
+        dels_s = dels_a[del_order]
+        dk = dels_s[:, 1] * n + dels_s[:, 0]
+        if dk.size and np.any(dk[1:] == dk[:-1]):
+            i = int(np.flatnonzero(dk[1:] == dk[:-1])[0])
+            raise ValueError(
+                f"duplicate delete of edge ({int(dels_s[i, 0])} -> "
+                f"{int(dels_s[i, 1])}) in one batch")
+        keep = np.ones(m, dtype=bool)
+        if dk.size:
+            pos = np.searchsorted(key, dk)
+            ok = np.zeros(dk.size, dtype=bool)
+            if m:
+                ok = (pos < m) & (key[np.minimum(pos, m - 1)] == dk)
+            if not np.all(ok):
+                i = int(np.flatnonzero(~ok)[0])
+                raise ValueError(
+                    f"cannot delete nonexistent edge ({int(dels_s[i, 0])} -> "
+                    f"{int(dels_s[i, 1])})")
+            keep[pos] = False
+
+        # additions: duplicate checks, then one sorted merge-insert
+        add_order = np.argsort(adds_a[:, 1] * n + adds_a[:, 0], kind="stable")
+        adds_s = adds_a[add_order]
+        ak = adds_s[:, 1] * n + adds_s[:, 0]
+        if ak.size and np.any(ak[1:] == ak[:-1]):
+            i = int(np.flatnonzero(ak[1:] == ak[:-1])[0])
+            raise ValueError(
+                f"duplicate add of edge ({int(adds_s[i, 0])} -> "
+                f"{int(adds_s[i, 1])}) in one batch")
+        key_kept = key[keep]
+        if ak.size and self.weights is None and key_kept.size:
+            p = np.searchsorted(key_kept, ak)
+            exists = (p < key_kept.size) \
+                & (key_kept[np.minimum(p, key_kept.size - 1)] == ak)
+            if np.any(exists):
+                i = int(np.flatnonzero(exists)[0])
+                raise ValueError(
+                    f"duplicate add: edge ({int(adds_s[i, 0])} -> "
+                    f"{int(adds_s[i, 1])}) already present (unweighted "
+                    f"graphs reject parallel edges)")
+        ins = np.searchsorted(key_kept, ak)
+        new_src = np.insert(src[keep], ins, adds_s[:, 0].astype(src.dtype))
+        new_dst = np.insert(dst[keep], ins, adds_s[:, 1].astype(dst.dtype))
+        new_w = None
+        if self.weights is not None:
+            new_w = np.insert(self.weights[keep], ins, add_w[add_order])
+
+        # derived state: per-endpoint count deltas, not a recount
+        new_out = self.out_degree.astype(np.int32, copy=True)
+        np.subtract.at(new_out, dels_a[:, 0], 1)
+        np.add.at(new_out, adds_a[:, 0], 1)
+        in_counts = np.diff(self.in_ptr)
+        np.subtract.at(in_counts, dels_a[:, 1], 1)
+        np.add.at(in_counts, adds_a[:, 1], 1)
+        in_ptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(in_counts, out=in_ptr[1:])
+
+        old_out = self.out_degree
+        touched_src = np.unique(np.r_[adds_a[:, 0], dels_a[:, 0]])
+        touched_dst = np.unique(np.r_[adds_a[:, 1], dels_a[:, 1]])
+        delta = GraphDelta(
+            n=n, added=adds_s, deleted=dels_s,
+            added_weights=None if add_w is None else add_w[add_order],
+            touched_src=touched_src, touched_dst=touched_dst,
+            newly_dangling=touched_src[(old_out[touched_src] > 0)
+                                       & (new_out[touched_src] == 0)],
+            undangled=touched_src[(old_out[touched_src] == 0)
+                                  & (new_out[touched_src] > 0)],
+        )
+        g_new = Graph.from_arrays(n, new_src, new_dst, new_out, in_ptr,
+                                  weights=new_w, bias=self.bias)
+        return g_new, delta
 
     def out_csr(self):
         """CSR over out-links: ``(out_ptr, out_dst, edge_slot)``.
@@ -299,6 +469,50 @@ class DecompositionPlan:
         out = self.struct_pruned.copy()
         out[self.ident_members] = True
         return out
+
+    def touched_by(self, delta: GraphDelta) -> bool:
+        """True when an update batch breaks an analysis the plan baked, so
+        it must be re-planned (:meth:`from_graph`) instead of patched: an
+        endpoint of an added or deleted edge is a pruned vertex or an
+        identical-class representative (a chain vertex gaining an in-edge,
+        a dead vertex gaining an escape, a representative's in-set or
+        out-degree leaving its members').  Updates among ordinary core
+        vertices are safe to :meth:`patched`: an add only raises core
+        degrees, a delete can at worst leave a core vertex that could now
+        be pruned, and every core contribution divides by the patched full
+        out-degree."""
+        if delta.num_ops == 0:
+            return False
+        hot = self.pruned  # a fresh copy
+        hot[self.ident_reps] = True
+        return bool(hot[delta.touched_vertices()].any())
+
+    def patched(self, g_new: Graph, delta: GraphDelta) -> "DecompositionPlan":
+        """The same analyses over the updated graphs, when
+        :meth:`touched_by` is False (raises otherwise): the batch is
+        replayed on the core through ``full_to_core`` (every endpoint is a
+        core vertex), so the core's full-graph out-degrees shift by the
+        full graph's ±1, and the full graph and its out-CSR
+        (:attr:`full_out`, which :meth:`reconstruct` reads) become
+        ``g_new``'s.  Masks, contracted edges and bias folds stay."""
+        if self.touched_by(delta):
+            raise ValueError(
+                "update touches a pruned vertex or identical-class "
+                "representative; re-plan with DecompositionPlan.from_graph")
+        if delta.num_ops == 0:
+            return dataclasses.replace(self, full=g_new)
+        core_adds = self.full_to_core[delta.added]
+        core_dels = self.full_to_core[delta.deleted]
+        add_w = None
+        if self.core.weights is not None:
+            add_w = delta.added_weights
+            if add_w is None:
+                add_w = np.ones(core_adds.shape[0], dtype=np.float64)
+        core_new, _ = self.core.apply_updates(core_adds, core_dels,
+                                              add_weights=add_w)
+        full_out = g_new.out_csr() if self.full_out is not None else None
+        return dataclasses.replace(self, core=core_new, full=g_new,
+                                   full_out=full_out)
 
     @classmethod
     def from_graph(cls, g: Graph, identical: bool = True, chains: bool = True,

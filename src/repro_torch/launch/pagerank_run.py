@@ -18,8 +18,18 @@ top-k, by forward push on the host (``--solver push``) or by
 
     ... -m repro_torch.launch.pagerank_run query --seeds 7,42 --top-k 10
 
-The reference launcher's ``--store``, ``--ckpt`` and its ``serve`` and
-``build`` subcommands come with later slices of the port; asking for them
+The ``serve`` subcommand runs continuous-batching PPR serving (the
+engine behind the serving runtime) over a synthetic query stream, all at
+once or as a ``--qps`` closed loop, with ``--updates`` random edge updates
+applied mid-stream (the runtime quiesces, the engine rebuilds its backend
+on the updated graph, stale cached answers are dropped):
+
+    ... -m repro_torch.launch.pagerank_run serve --backend cuda \
+        --slots 8 --queries 32 --updates 500 --update-batches 2
+
+The reference launcher's ``--store``, ``--ckpt`` and its ``build``
+subcommand come with later slices of the port, and ``serve
+--mesh-shards`` above 1 with the distributed slice; asking for them
 raises.
 """
 from __future__ import annotations
@@ -35,8 +45,9 @@ from repro_torch.core.pagerank import l1_norm, pagerank_numpy
 from repro_torch.core.solver import build_variant, get_variant, list_variants, plan_stats
 from repro_torch.graphs import DATASETS, make_dataset
 from repro_torch.kernels.spmv import launch_counts
+from repro_torch.serving.runtime import ServingRuntime
 
-_LATER = ("serve", "build", "--store", "--ckpt")
+_LATER = ("build", "--store", "--ckpt")
 
 
 def _parse_seeds(spec: str) -> tuple[int, ...]:
@@ -95,21 +106,217 @@ def query(argv) -> dict:
     return report
 
 
+class _VersionedRuntime(ServingRuntime):
+    """A :class:`ServingRuntime` that records every response with the
+    version of the graph it answers (the update batches applied before it
+    was solved, or for a cached answer before it was served) and the
+    kernel launches while each version served.  The graphs are not kept:
+    the seeded update stream rebuilds them."""
+
+    def __init__(self, engine, **kw):
+        super().__init__(engine, **kw)
+        self.versions: list[int] = []
+        self.responses: list = []
+        self.launches: list[dict] = []
+        self.applied = 0
+        self._counts = launch_counts()
+
+    def _record(self, responses):
+        self.versions += [len(self.launches)] * len(responses)
+        self.responses += list(responses)
+
+    def close_version(self):
+        now = launch_counts()
+        self.launches.append({k: n - self._counts[k] for k, n in now.items()})
+        self._counts = now
+
+    def offer(self, q, **kw):
+        adm = super().offer(q, **kw)
+        if adm.response is not None:
+            self._record([adm.response])
+        return adm
+
+    def pump(self):
+        out = super().pump()
+        self._record(out)
+        return out
+
+    def apply_updates(self, **kw):
+        delta, drained = super().apply_updates(**kw)
+        self._record(drained)  # solved on the graph before the batch
+        self.close_version()
+        self.applied += delta.num_ops
+        return delta, drained
+
+
+def serve(argv) -> dict:
+    """The ``serve`` subcommand: print the reference's figures and return
+    them (``backend``, ``device``, ``n``, ``m`` of the updated graph,
+    ``applied`` update ops, and ``wall_s``, ``qps``, ``p50_ms``, ``p99_ms``
+    for the all-at-once drain or the closed loop's ``load`` report), with
+    ``responses``, the graph version each answers (``versions``: update
+    batches applied before it), the kernel launches while each version
+    served (``launches``), ``invalidations`` and the runtime's ``stats``.
+    Both paths draw every
+    batch with ``random_update_batch`` from one ``default_rng(--seed)``
+    against the live graph, so replaying that stream from the dataset
+    rebuilds the graph of each version."""
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.pagerank_run serve")
+    ap.add_argument("--dataset", choices=tuple(DATASETS), default="webStanford")
+    ap.add_argument("--scale-down", type=float, default=256.0)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--queries", type=int, default=32)
+    ap.add_argument("--top-k", type=int, default=10)
+    ap.add_argument("--threshold", type=float, default=1e-6)
+    ap.add_argument("--backend", choices=("torch", "cuda"), default="torch",
+                    help="torch: the batched sweep in plain torch ops; cuda: "
+                         "the gs_pass_multi kernel (the reference's jax and "
+                         "pallas)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--handle-dangling", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--qps", type=float, default=0.0,
+                    help="offered load: drive the serving runtime with a "
+                         "target-qps Zipf-skewed closed loop instead of the "
+                         "all-at-once drain")
+    ap.add_argument("--queue-depth", type=int, default=32,
+                    help="admission-queue bound; a full queue rejects "
+                         "(backpressure)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-query queue-wait deadline; expired queries are "
+                         "dropped, never solved (0 = none)")
+    ap.add_argument("--mesh-shards", type=int, default=0,
+                    help="shard the slot batch over this many devices; above "
+                         "1 it is not ported yet")
+    ap.add_argument("--zipf-alpha", type=float, default=1.1,
+                    help="seed-popularity skew of the --qps workload")
+    ap.add_argument("--updates", type=int, default=0, metavar="N",
+                    help="apply N random edge updates (adds+dels) mid-stream: "
+                         "the runtime quiesces, the engine rebuilds its "
+                         "backend, stale cached answers are dropped")
+    ap.add_argument("--update-batches", type=int, default=1,
+                    help="split --updates over this many batches")
+    ap.add_argument("--localized", action="store_true",
+                    help="sink-bounded updates (dangling→dangling adds) "
+                         "instead of uniform random ones")
+    args = ap.parse_args(argv)
+    if args.queries < 1:
+        ap.error("--queries must be >= 1")
+    if args.mesh_shards > 1:
+        raise NotImplementedError(
+            "--mesh-shards above 1 is not ported yet: a slot batch split "
+            "across devices comes with the distributed slice of the port")
+
+    from repro_torch.core.dynamic import make_update_injector, random_update_batch
+    from repro_torch.serving import PPREngine, make_query_stream
+
+    g = make_dataset(args.dataset, scale_down=args.scale_down)
+    eng = PPREngine(g, slots=args.slots, threshold=args.threshold,
+                    backend=args.backend, device=args.device,
+                    handle_dangling=args.handle_dangling)
+    name = (torch.cuda.get_device_name(0) if eng.device.type == "cuda"
+            else "cpu")
+    print(f"{args.dataset}: n={g.n} m={g.m}  slots={args.slots} "
+          f"backend={args.backend} device={args.device} ({name}) mesh_shards=1")
+    runtime = _VersionedRuntime(
+        eng, queue_depth=args.queue_depth,
+        deadline_s=args.deadline_ms * 1e-3 if args.deadline_ms > 0 else None)
+    report = dict(backend=args.backend, device=name)
+
+    n_batches = max(args.update_batches, 1)
+    per_batch = max(1, args.updates // n_batches) if args.updates else 0
+    if args.qps > 0:
+        from repro_torch.serving.loadgen import LoadConfig, make_workload, run_closed_loop
+
+        cfg = LoadConfig(queries=args.queries, qps=args.qps, top_k=args.top_k,
+                         zipf_alpha=args.zipf_alpha, seed=args.seed)
+        queries, arrivals = make_workload(g.n, cfg)
+        kwargs = {}
+        if args.updates > 0:
+            step = max(1, args.queries // (n_batches + 1))
+            kwargs = dict(
+                update_injector=make_update_injector(
+                    np.random.default_rng(args.seed), per_batch,
+                    localized=args.localized),
+                update_at=tuple(step * (i + 1) for i in range(n_batches)))
+        rep = run_closed_loop(runtime, queries, arrivals, **kwargs)
+        p50 = f"{rep.p50_ms:.1f}ms" if rep.p50_ms is not None else "n/a"
+        p99 = f"{rep.p99_ms:.1f}ms" if rep.p99_ms is not None else "n/a"
+        print(f"offered {rep.offered_qps:.1f} q/s → achieved "
+              f"{rep.achieved_qps:.1f} q/s  p50={p50} p99={p99} (under load)")
+        print(f"queue depth mean={rep.queue_depth_mean:.1f} "
+              f"max={rep.queue_depth_max:.0f}  "
+              f"rejected={rep.rejected} ({rep.rejection_rate:.1%})  "
+              f"expired={rep.expired}  cache_hits={rep.cache_hits}  "
+              f"invalidations={rep.cache_invalidations}")
+        report.update(load=rep.to_dict(), wall_s=rep.wall_s,
+                      qps=rep.achieved_qps, p50_ms=rep.p50_ms, p99_ms=rep.p99_ms)
+    else:
+        queries = make_query_stream(g.n, args.queries, top_k=args.top_k,
+                                    seed=args.seed)
+        t0 = time.perf_counter()
+        if args.updates > 0:
+            half = len(queries) // 2
+            responses = runtime.serve(queries[:half])
+            rng = np.random.default_rng(args.seed)
+            for _ in range(n_batches):
+                adds, dels = random_update_batch(eng.g, rng, per_batch,
+                                                 localized=args.localized)
+                _, drained = runtime.apply_updates(adds=adds, dels=dels)
+                responses += drained
+            print(f"applied {runtime.applied} edge updates "
+                  f"({'localized' if args.localized else 'random'}, "
+                  f"{n_batches} batch(es)): n={eng.g.n} m={eng.g.m}, "
+                  f"warm cache now {len(eng._cache)} rows, result cache "
+                  f"{runtime.result_cache_len} (invalidated "
+                  f"{runtime.metrics.count('cache_invalidations')})")
+            responses += runtime.serve(queries[half:])
+        else:
+            responses = runtime.serve(queries)
+        wall = time.perf_counter() - t0
+        lat = np.asarray([r.latency_s for r in responses]) * 1e3
+        report.update(wall_s=wall, qps=len(responses) / wall,
+                      p50_ms=float(np.percentile(lat, 50)),
+                      p99_ms=float(np.percentile(lat, 99)))
+        print(f"served {len(responses)} queries in {wall:.2f}s "
+              f"({report['qps']:.1f} q/s)  p50={report['p50_ms']:.1f}ms "
+              f"p99={report['p99_ms']:.1f}ms  warm_hits={eng.warm_hits}"
+              f"  cache_hits={runtime.metrics.count('cache_hits')}")
+        first = min(responses, key=lambda r: r.qid)
+        top = ", ".join(f"{int(v)}:{float(x):.2e}"
+                        for v, x in zip(first.indices[:5], first.values[:5]))
+        print(f"sample qid={first.qid} seeds={list(first.seeds)} top5: {top}")
+    print(f"slots: occupancy={eng.slot_occupancy:.0%} "
+          f"submit_rejections={eng.submit_rejections} "
+          f"(re-queued, not dropped)  {runtime.metrics.summary()}")
+    runtime.close_version()
+    report.update(
+        n=eng.g.n, m=eng.g.m, applied=runtime.applied,
+        responses=runtime.responses, versions=runtime.versions,
+        launches=runtime.launches,
+        warm_hits=eng.warm_hits,
+        invalidations=runtime.metrics.count("cache_invalidations"),
+        stats=runtime.stats())
+    return report
+
+
 def run(argv=None) -> dict:
     """Parse ``argv``, solve, print the report, and return it as a dict
     (``variant``, ``n``, ``m``, ``device``, ``plan``: the plan's stats or
     ``None``, ``iterations``, ``sweeps``, ``err``, ``wall_s``, ``l1``,
     ``oracle_iterations``, ``top5``, ``launches``); ``--list`` prints the
-    registry and returns ``{}``; ``query ...`` returns :func:`query`'s
-    report."""
+    registry and returns ``{}``; ``query ...`` and ``serve ...`` return
+    :func:`query`'s and :func:`serve`'s reports."""
     argv = list(sys.argv[1:] if argv is None else argv)
     later = [a for a in argv if a.split("=")[0] in _LATER]
     if later:
         raise NotImplementedError(
             f"{later[0]} is not ported yet: the port's launcher runs the "
-            f"global solve and the query subcommand only")
+            f"global solve and the query and serve subcommands only")
     if argv[:1] == ["query"]:
         return query(argv[1:])
+    if argv[:1] == ["serve"]:
+        return serve(argv[1:])
     ap = argparse.ArgumentParser(prog="repro_torch.launch.pagerank_run")
     ap.add_argument("--dataset", choices=tuple(DATASETS), default="webStanford")
     ap.add_argument("--scale-down", type=float, default=256.0)

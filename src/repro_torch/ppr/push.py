@@ -125,20 +125,34 @@ def push_residual(
     *,
     d: float = DEFAULT_DAMPING,
     rmax: float = 1e-8,
+    bank: float | None = None,
+    signed: bool = False,
     teleport: np.ndarray | None = None,
     handle_dangling: bool = False,
     max_rounds: int = 10_000,
+    touched: np.ndarray | None = None,
     priority: bool = False,
 ) -> tuple[int, int]:
     """Drain residual mass from ``r`` into ``est`` in place until every
     residual is at or below ``rmax``; returns ``(rounds, pushes)``.
 
-    A push on ``v`` banks ``(1-d)·r_v``.  With ``handle_dangling`` the
-    residual a dangling vertex would forward is re-teleported along
-    ``teleport``.  ``priority=True`` pushes the :class:`BucketQueue`'s top
-    bucket each round (a round is one popped batch, so round counts do not
-    compare across modes; push counts do)."""
-    bank = 1.0 - d
+    The one frontier loop of the PPR query path and of the dynamic repair,
+    which differ in parameters only:
+
+    * PPR (:func:`ppr_push`): ``bank=1-d`` (the default), unsigned
+      residuals; a push on ``v`` banks ``(1-d)·r_v``.
+    * delta repair (:mod:`repro_torch.core.dynamic`): ``bank=1.0``,
+      ``signed=True``; residuals are signed rank defects, a push banks the
+      whole ``r_v`` (the Neumann identity ``pr* = est + (I − dMᵀ)⁻¹r``), and
+      the frontier is ``|r| > rmax``.
+
+    ``touched``, when given, is an ``(n,)`` bool mask OR-accumulated with
+    every vertex pushed or scattered into, the repair's locality metric.
+    With ``handle_dangling`` the residual a dangling vertex would forward
+    is re-teleported along ``teleport``.  ``priority=True`` pushes the
+    :class:`BucketQueue`'s top bucket each round (a round is one popped
+    batch, so round counts do not compare across modes; push counts do)."""
+    bank = (1.0 - d) if bank is None else bank
     out_ptr, out_dst, out_slot = g.out_csr()
     w_out = None if g.weights is None else g.weights[out_slot]
     outdeg = g.out_degree.astype(np.int64)
@@ -146,10 +160,18 @@ def push_residual(
     pushes = 0
     rounds = 0
 
+    def magnitude(idx):
+        return np.abs(r[idx]) if signed else r[idx]
+
+    def over(x):
+        return (np.abs(x) if signed else x) > rmax
+
     def push_batch(frontier):
         """Push every frontier vertex once; returns the scatter targets."""
         nonlocal pushes
         pushes += int(frontier.size)
+        if touched is not None:
+            touched[frontier] = True
         moved = r[frontier].copy()
         r[frontier] = 0.0  # zeroed before the scatter, so self-loops add up
         est[frontier] += bank * moved
@@ -164,6 +186,8 @@ def push_residual(
                 vals = vals * w_out[eidx]
             np.add.at(r, out_dst[eidx], vals)
             scattered = out_dst[eidx]
+            if touched is not None:
+                touched[scattered] = True
         if handle_dangling:
             dang_mass = d * float(moved[~live].sum())
             if dang_mass != 0.0:
@@ -172,34 +196,34 @@ def push_residual(
         return scattered
 
     if not priority:
-        frontier = np.flatnonzero(r > rmax)
+        frontier = np.flatnonzero(over(r))
         while frontier.size and rounds < max_rounds:
             rounds += 1
             push_batch(frontier)
-            frontier = np.flatnonzero(r > rmax)
+            frontier = np.flatnonzero(over(r))
         return rounds, pushes
 
     q = BucketQueue(rmax)
-    init = np.flatnonzero(r > rmax)
-    q.push(init, r[init])
+    init = np.flatnonzero(over(r))
+    q.push(init, magnitude(init))
     while rounds < max_rounds:
         batch = q.pop_batch()
         if batch.size == 0:
             # lazy entries make an empty queue a candidate exit: one full
             # recheck confirms convergence or refills the queue
-            left = np.flatnonzero(r > rmax)
+            left = np.flatnonzero(over(r))
             if left.size == 0:
                 break
-            q.push(left, r[left])
+            q.push(left, magnitude(left))
             continue
-        batch = batch[r[batch] > rmax]  # drop stale entries
+        batch = batch[magnitude(batch) > rmax]  # drop stale entries
         if batch.size == 0:
             continue
         rounds += 1
         scattered = push_batch(batch)
         if scattered.size:
             uniq = np.unique(scattered)
-            mag = r[uniq]
+            mag = magnitude(uniq)
             risen = mag > rmax
             q.push(uniq[risen], mag[risen])
     return rounds, pushes

@@ -23,9 +23,14 @@ Gauss–Seidel kernel :func:`repro_torch.kernels.spmv.gs_pass_multi` through
 :func:`repro_torch.ppr.batched.make_batched_blocked_sweep`; its plain
 version on a CPU device).
 
-Not ported yet: serving a batch split across devices (``mesh=``) and
-``apply_updates``, which come with the serving-runtime and dynamic-update
-slices; both raise ``NotImplementedError``.
+Between queries (no active slot), :meth:`PPREngine.apply_updates` applies
+an edge batch: it swaps in the updated graph, rebuilds the backend on the
+same device with the same options, drops the warm-cache rows the batch may
+have moved, and fires ``update_callbacks`` (the serving runtime's
+result-cache invalidation).
+
+Not ported yet: serving a batch split across devices (``mesh=``), which
+comes with the distributed slice; it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -85,6 +90,7 @@ class PPRResponse:
     iterations: int
     latency_s: float  # submit → harvest wall time
     warm_start: bool
+    cached: bool = False  # answered from the runtime's top-k result cache
 
 
 def make_query_stream(n: int, count: int, *, top_k: int = 10,
@@ -166,6 +172,7 @@ class _KernelBackend:
                  block: int = 256):
         bg = BlockedGraph.build(g, block=block, device=device)
         self.n = g.n
+        self.block = bg.block
         self.iters_per_step = iters_per_step
         self.sweep = make_batched_blocked_sweep(bg, d=d,
                                                 handle_dangling=handle_dangling)
@@ -222,7 +229,7 @@ class PPREngine:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= is not ported yet: a batch split across devices comes "
-                "with the serving-runtime slice of the port")
+                "with the distributed slice of the port")
         self.g = g
         self.slots = slots
         self.d = d
@@ -230,10 +237,10 @@ class PPREngine:
         self.handle_dangling = handle_dangling
         self.iters_per_step = iters_per_step
         self.backend_name = backend
-        self._backend = _BACKENDS[backend](
-            g, slots=slots, d=d, handle_dangling=handle_dangling,
-            iters_per_step=iters_per_step, device=resolve_device(device),
-            **backend_opts)
+        # kept so the backend rebuilt after an update is the same
+        self.device = resolve_device(device)
+        self.backend_opts = dict(backend_opts)
+        self._backend = self._make_backend(g)
         self._active: list[Optional[_Active]] = [None] * slots
         # free slots stay frozen: their rows are held in place by the pass
         self._frozen = np.ones(slots, dtype=bool)
@@ -243,6 +250,23 @@ class PPREngine:
         self.submit_rejections = 0
         self.busy_slot_steps = 0
         self.total_slot_steps = 0
+        # fired with the GraphDelta after every applied update batch: the
+        # serving runtime hangs its result-cache invalidation here
+        self.update_callbacks: list = []
+
+    def _make_backend(self, g: Graph):
+        return _BACKENDS[self.backend_name](
+            g, slots=self.slots, d=self.d,
+            handle_dangling=self.handle_dangling,
+            iters_per_step=self.iters_per_step, device=self.device,
+            **self.backend_opts)
+
+    @property
+    def cache_block(self) -> int:
+        """Warm-cache invalidation granularity: the ``cuda`` backend's dst
+        block, or the default 256 for the ``torch`` backend, which has no
+        blocks."""
+        return getattr(self._backend, "block", 256)
 
     @property
     def slot_occupancy(self) -> float:
@@ -321,9 +345,32 @@ class PPREngine:
         return out
 
     def apply_updates(self, adds=None, dels=None, add_weights=None):
-        raise NotImplementedError(
-            "apply_updates is not ported yet: it needs Graph.apply_updates "
-            "and comes with the dynamic-update slice of the port")
+        """Apply an edge batch between queries: swap in the updated graph,
+        rebuild the backend, and drop stale warm-cache rows.  Returns the
+        :class:`repro_torch.graphs.csr.GraphDelta`.
+
+        The engine must be idle: in-flight rows belong to the old graph's
+        fixed points.  Cached rows are only warm starts (every query still
+        iterates to convergence), so invalidation is a latency heuristic:
+        rows whose seed set shares a :attr:`cache_block` with a touched
+        vertex are dropped, and always the empty-seed global row."""
+        if self.active_count:
+            raise RuntimeError(
+                "cannot apply updates with active slots; drain first")
+        g_new, delta = self.g.apply_updates(adds=adds, dels=dels,
+                                            add_weights=add_weights)
+        if delta.num_ops:
+            self.g = g_new
+            self._backend = self._make_backend(g_new)
+            block = self.cache_block
+            hot = set((delta.touched_vertices() // block).tolist())
+            stale = [k for k in self._cache
+                     if not k or any(s // block in hot for s in k)]
+            for k in stale:
+                del self._cache[k]
+            for cb in self.update_callbacks:
+                cb(delta)
+        return delta
 
     def reset(self) -> None:
         """Forget the warm cache and counters (the engine must be idle), so

@@ -754,3 +754,68 @@ def test_gs_pass_on_plan_core_operands(cuda):
         torch.cuda.synchronize()
         assert _rel_err(out, ref) <= RTOL
         assert torch.equal(out[frozen], pr[frozen])
+
+
+# ---------------------------------------------------------------------------
+# dynamic updates: the kernels on graphs that change between launches
+# ---------------------------------------------------------------------------
+
+
+def test_incremental_blocked_nosync_on_card_matches_cpu_twin(cuda):
+    """IncrementalPageRank on the card (gs_pass) against the same run on
+    the CPU twin: one uniform batch, then a forced fallback (push budget
+    0), whose warm solve runs gs_pass on the updated in-CSR."""
+    from repro_torch.core.dynamic import IncrementalPageRank, random_update_batch
+
+    g = make_dataset("webStanford", scale_down=64)
+    reset_launch_counts()
+    card = IncrementalPageRank(g, variant="blocked_nosync", tol=1e-8, device=cuda)
+    assert launch_counts()["gs_pass"] > 0
+    twin = IncrementalPageRank(g, variant="blocked_nosync", tol=1e-8, device="cpu")
+    rngs = [np.random.default_rng(1), np.random.default_rng(1)]
+    for budget in (10_000, 0):
+        reps = []
+        for ipr, rng in zip((card, twin), rngs):
+            ipr.max_push_rounds = budget
+            adds, dels = random_update_batch(ipr.g, rng, 200)
+            reset_launch_counts()
+            reps.append(ipr.apply(adds=adds, dels=dels))
+            if ipr is card and budget == 0:
+                assert launch_counts()["gs_pass"] > 0
+        assert card.g.m == twin.g.m and np.array_equal(card.g.src, twin.g.src)
+        assert reps[0].mode == reps[1].mode == ("push" if budget else "fallback")
+        want, _ = pagerank_numpy(card.g, threshold=1e-13, max_iter=100_000)
+        for ipr, rep in zip((card, twin), reps):
+            assert np.abs(ipr.pagerank - want).sum() <= rep.l1_cert + 1e-9
+        assert np.abs(card.pagerank - twin.pagerank).sum() \
+            <= reps[0].l1_cert + reps[1].l1_cert
+
+
+def test_engine_cuda_backend_updates_on_card_match_cpu_twin(cuda):
+    """The engine's cuda backend before and after apply_updates, on the
+    card and on the CPU twin: the same answers, the same warm-cache keys,
+    and gs_pass_multi launched on the backend rebuilt for the new graph."""
+    from repro_torch.core.dynamic import random_update_batch
+
+    g = make_dataset("webStanford", scale_down=64)
+    qs = make_query_stream(g.n, 12, seed=2)
+    engines = [PPREngine(g, slots=8, threshold=1e-7, backend="cuda", device=dev)
+               for dev in (cuda, "cpu")]
+    adds, dels = random_update_batch(g, np.random.default_rng(3), 100)
+    for phase in ("before", "after"):
+        if phase == "after":
+            for eng in engines:
+                eng.apply_updates(adds=adds, dels=dels)
+            assert set(engines[0]._cache) == set(engines[1]._cache)
+        reset_launch_counts()
+        card = {r.qid: r for r in engines[0].drain(qs)}
+        assert launch_counts()["gs_pass_multi"] > 0
+        twin = {r.qid: r for r in engines[1].drain(qs)}
+        gv = engines[0].g
+        for qid, r in card.items():
+            ref = ppr_numpy(gv, teleport_from_seeds([r.seeds], gv.n),
+                            threshold=1e-12)[0][0]
+            kth = np.sort(ref)[::-1][r.indices.size - 1]
+            assert (ref[r.indices] >= kth - 1e-6).all(), (phase, qid)
+            assert np.abs(r.values - ref[r.indices]).max() < 1e-5
+            assert np.abs(r.values - twin[qid].values).max() < 1e-5

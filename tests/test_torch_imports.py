@@ -61,3 +61,10 @@ def test_no_jax_or_reference_imports(path):
 ])
 def test_audit_catches_forbidden_forms(src, bad):
     assert bool(forbidden_imports(ast.parse(src))) is bad
+
+
+@pytest.mark.parametrize("module", [
+    "core/dynamic.py", "serving/runtime.py", "serving/loadgen.py",
+    "serving/metrics.py", "launch/pagerank_run.py"])
+def test_the_audit_covers_the_dynamic_and_serving_modules(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES

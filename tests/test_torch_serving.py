@@ -195,8 +195,6 @@ def test_engine_rejects_unknown_backend_empty_graph_and_later_slices():
         PPREngine(empty, device=CPU)
     with pytest.raises(NotImplementedError, match="not ported"):
         PPREngine(g, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PPREngine(g, device=CPU).apply_updates(adds=[(0, 1)])
     with pytest.raises(TypeError):
         PPREngine(g, backend="torch", block=64, device=CPU)
 

@@ -252,7 +252,8 @@ def test_launcher_runs_the_solve_path_on_cpu(capsys):
     assert "blocked_nosync_opt" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--store=/tmp/x"], ["serve"], ["build"],
+@pytest.mark.parametrize("argv", [["--store=/tmp/x"],
+                                  ["serve", "--mesh-shards", "2"], ["build"],
                                   ["--store", "/tmp/x"], ["--ckpt=/tmp/x"]])
 def test_launcher_rejects_later_slices(argv):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -78,7 +78,21 @@ Phases, one or more lines each; any failure exits non-zero:
                make_query_stream(n, 32, seed=0) at threshold 1e-6: every
                top-k is the oracle's, q/s and latency; the torch backend
                answers with the same top-k;
-11. dynamic — IncrementalPageRank (leaky convention, tol 1e-8): the
+11. distributed — four partitions on the card (ShardMesh((cuda,) * 4)),
+               full size, threshold 1e-8, dangling redistribution on and
+               off: distributed_pagerank barrier and stale (4 sweeps a
+               round) and distributed_pagerank_topk (2 sweeps, 1/8 of the
+               deltas), every shard's sweeps of the first 2 rounds held
+               against spmv_csr_rows_ref, each solve twice (equal), L1 to
+               a float64 oracle ≤ 1e-4, launches = sweeps, stale's rounds
+               ≤ barrier's without dangling; the three registry entries at
+               threads=56 (p = 1 on one card); spmv_csr_rows on a
+               partition timed; the engine's cuda backend with its 8 slots
+               over 4 shards (2 rows a gs_pass_multi launch): every
+               shard's passes of a first engine step held against
+               gs_pass_multi_ref, then the engine's 32 queries, every
+               top-k the oracle's and the unsharded engine's;
+12. dynamic — IncrementalPageRank (leaky convention, tol 1e-8): the
                blocked_nosync initial solve (gs_pass) and its float64
                refinement, 4 sink-bounded and 2 uniform batches of 250
                ops, one forced fallback (push budget 0: the warm global
@@ -90,7 +104,7 @@ Phases, one or more lines each; any failure exits non-zero:
                a float64 oracle of the updated graph and within its
                certificate plus the oracle's error, every sink-bounded
                batch a push touching under 10 % of the vertices;
-12. ppr serve — the launcher's serve --backend cuda with 500 live edge
+13. ppr serve — the launcher's serve --backend cuda with 500 live edge
                updates in 2 batches (8 slots, 32 queries, threshold
                1e-6), all at once under the profiler (device busy share),
                then as a closed loop at half the q/s the first run
@@ -99,12 +113,12 @@ Phases, one or more lines each; any failure exits non-zero:
                rebuilt from the seeded update stream, is its float64
                oracle's top-k, and gs_pass_multi launches on the backend
                rebuilt for each updated graph;
-13. push    — ppr_push and ppr_push_priority (host float64) at rmax
+14. push    — ppr_push and ppr_push_priority (host float64) at rmax
                1e-8 from the distinct seed sets of the engine's first 8
                queries: rounds, pushes, the L1 certificate, wall; every
                estimate at or below the oracle, every top-10 the oracle's
                up to the certificate;
-14. flash   — flash_attention against its plain version over the
+15. flash   — flash_attention against its plain version over the
                reference's test matrix (f32/bf16 x 3 head layouts x
                causal / window 64 / full, s 256, dh 64), ragged and
                sq != sk lengths, and qwen2-vl-2b's shape (b 2, hq 12,
@@ -113,14 +127,14 @@ Phases, one or more lines each; any failure exits non-zero:
                float32 plain result rounded to bf16; times beside the plain version, SDPA
                and the bound (and, in bf16, the floor of the kernel's own
                tensor-core work: P·V as P_TERMS bf16 products);
-15. prefill — qwen2-vl-2b at full width (1.54 B parameters, bf16, random
+16. prefill — qwen2-vl-2b at full width (1.54 B parameters, bf16, random
                from a seeded generator): forward at b 2, s 4096 launches
                the kernel once per layer (the main path); tokens/s over
                three runs, the trace; f32 kernel route against the plain
                route entry-wise; bf16 routes against the f32 forward;
-16. decode  — 128 teacher-forced f32 decode steps against the prefill's
+17. decode  — 128 teacher-forced f32 decode steps against the prefill's
                logits, ms per step (no kernel on this path);
-17. serve   — repro_torch.launch.serve --preset full: every request
+18. serve   — repro_torch.launch.serve --preset full: every request
                finishes (no kernel on this path); then the same requests
                and loop in float32 on the decode phase's weights, every
                token the engine picks held against forward's argmax over
@@ -254,6 +268,13 @@ PUSH_TOPK = 10
 # dynamic updates (leaky convention only): IncrementalPageRank's tol, the
 # ops a batch, the reference's locality bar for sink-bounded batches
 # (benchmarks/bench_dynamic.py) and the L1 every batch must reach
+# the distributed solvers: four partitions on one card, the reference's
+# registry defaults (stale 4 sweeps a round, topk 2 and 1/8 of the deltas)
+DIST_P = 4
+DIST_SWEEPS = 4
+DIST_TOPK_SWEEPS = 2
+DIST_SEND_FRACTION = 0.125
+DIST_CHECKED_ROUNDS = 2  # rounds whose every shard sweep is held to the twin
 DYN_TOL = 1e-8
 DYN_OPS = 250
 LOCALIZED_TOUCHED_MAX = 0.10
@@ -1127,22 +1148,28 @@ def engine_phase(g, dev, oracle):
               f"engine: qid {qid} top-k differs between the backends")
     print("engine: the torch backend gives the same top-k for every query",
           flush=True)
+    return answers["cuda"]
 
 
-def global_oracle(g, pr0=None, d=0.85, max_iter=5000):
-    """Float64 leaky PageRank of ``g`` by a scipy sparse power iteration
-    (independent of the port), from ``pr0`` (the previous graph's oracle
-    saves iterations; the fixed point does not depend on the start), until
-    a step moves at most GLOBAL_ORACLE_STEP in L1.  Returns the vector and
-    its L1 error bound, d / (1 - d) times the last step."""
+def global_oracle(g, pr0=None, d=0.85, max_iter=5000, dangling=False):
+    """Float64 PageRank of ``g`` by a scipy sparse power iteration
+    (independent of the port), leaky or, with ``dangling``, with the
+    dangling mass spread uniformly, from ``pr0`` (the previous graph's
+    oracle saves iterations; the fixed point does not depend on the start),
+    until a step moves at most GLOBAL_ORACLE_STEP in L1.  Returns the
+    vector and its L1 error bound, d / (1 - d) times the last step (the
+    step is a d-contraction in L1 either way)."""
     import scipy.sparse as sp
 
     inv = np.where(g.out_degree > 0, 1.0 / np.maximum(g.out_degree, 1), 0.0)
     a = sp.csr_matrix((inv[g.src], (g.dst, g.src)), shape=(g.n, g.n))
     base = (1.0 - d) / g.n
+    sink = g.out_degree == 0
     pr = np.full(g.n, 1.0 / g.n) if pr0 is None else np.array(pr0, np.float64)
     for it in range(1, max_iter + 1):
         new = base + d * (a @ pr)
+        if dangling:
+            new += d * pr[sink].sum() / g.n
         step = np.abs(new - pr).sum()
         pr = new
         if step <= GLOBAL_ORACLE_STEP:
@@ -1150,6 +1177,251 @@ def global_oracle(g, pr0=None, d=0.85, max_iter=5000):
     check(step <= GLOBAL_ORACLE_STEP,
           f"global oracle: L1 step {step:.1e} after {max_iter} iterations")
     return pr, d / (1 - d) * step, it
+
+
+@contextlib.contextmanager
+def checked_rows(rounds_of_sweeps: int):
+    """Hold the first ``rounds_of_sweeps`` spmv_csr_rows calls of the
+    distributed solvers (every shard's sweeps of their first rounds)
+    against spmv_csr_rows_ref on the same operands, within the entry bound;
+    later calls pass through (the wrapper launches and counts each).
+    Yields the number of calls held and the worst entry-wise error."""
+    from repro_torch.core import distributed
+    from repro_torch.kernels.spmv import spmv_csr_rows_ref
+
+    real = distributed.spmv_csr_rows
+    seen = {"calls": 0, "entry_rel": 0.0}
+
+    def checked(contrib, *args):
+        out = real(contrib, *args)
+        if seen["calls"] < rounds_of_sweeps:
+            seen["calls"] += 1
+            _, _, ent = check_agreement(f"spmv_csr_rows (call {seen['calls']})",
+                                        out, spmv_csr_rows_ref(contrib, *args))
+            seen["entry_rel"] = max(seen["entry_rel"], ent)
+        return out
+
+    distributed.spmv_csr_rows = checked
+    try:
+        yield seen
+    finally:
+        distributed.spmv_csr_rows = real
+
+
+@contextlib.contextmanager
+def checked_multi(tag: str, calls: int):
+    """Hold the first ``calls`` gs_pass_multi calls of the batched blocked
+    sweep (``repro_torch.ppr.batched.gs_pass_multi``, the name the PPR
+    engine's cuda backend calls) against gs_pass_multi_ref on the same
+    operands: within the entry bound, frozen rows bit for bit the input.
+    Later calls pass through; the wrapper launches and counts each.
+    Yields the number of calls held, the row counts b they had and the
+    worst entry-wise error."""
+    from repro_torch.kernels.spmv import gs_pass_multi_ref
+    from repro_torch.ppr import batched
+
+    real = batched.gs_pass_multi
+    seen = {"calls": 0, "rows": set(), "entry_rel": 0.0}
+
+    def checked(pr, *args):
+        out = real(pr, *args)
+        if seen["calls"] < calls:
+            seen["calls"] += 1
+            name = f"gs_pass_multi ({tag}, call {seen['calls']})"
+            _, _, ent = check_agreement(name, out, gs_pass_multi_ref(pr, *args))
+            frozen = args[-1]
+            check(torch.equal(out[..., frozen], pr[..., frozen]),
+                  f"{name} moved a frozen row")
+            seen["rows"].add(pr.shape[-1])
+            seen["entry_rel"] = max(seen["entry_rel"], ent)
+        return out
+
+    batched.gs_pass_multi = checked
+    try:
+        yield seen
+    finally:
+        batched.gs_pass_multi = real
+
+
+def distributed_phase(g, dev, oracle, queries, unsharded):
+    """The distributed solvers at p = DIST_P on one card
+    (``ShardMesh((cuda,) * 4)``: four partitions, the exchange within the
+    card's memory), dangling redistribution on and off: barrier, stale
+    (DIST_SWEEPS sweeps a round) and topk (DIST_TOPK_SWEEPS,
+    DIST_SEND_FRACTION).  A first solve holds every shard's sweeps of its
+    first DIST_CHECKED_ROUNDS rounds against spmv_csr_rows_ref; a second,
+    unchecked, is timed and counted and must repeat the first.  Each is
+    held to the float64 oracle (L1 ≤ L1_DEFAULT); stale needs no more
+    rounds than barrier without dangling redistribution (the paper's
+    setting).  Then the registry's three entries at threads=56 (p =
+    min(56, cards)), the partition SpMV timed beside its plain version,
+    torch.sparse and its bound, and the engine's cuda backend with its 8
+    slots split over 4 shards: every shard's gs_pass_multi passes of a
+    first step (its first PPR_ROWS queries) held against gs_pass_multi_ref
+    at the shard's 2 rows, then, the engine reset, the engine phase's
+    queries, every top-k the oracle's and the unsharded engine's (bit for
+    bit or within ties).
+    Returns the partition kernel's numbers and the launches by path."""
+    from repro_torch.core import (
+        PartitionedGraph, ShardMesh, distributed_pagerank, distributed_pagerank_topk,
+    )
+    from repro_torch.core.distributed import MeshOperands
+    from repro_torch.core.pagerank import l1_norm
+    from repro_torch.core.solver import build_variant
+    from repro_torch.kernels.spmv import (
+        launch_counts, reset_launch_counts, spmv_csr_rows, spmv_csr_rows_ref,
+    )
+    from repro_torch.ppr import topk
+    from repro_torch.serving import PPREngine
+
+    launches = {"spmv_csr_acc": {}, "gs_pass_multi": {}}
+    mesh = ShardMesh((dev,) * DIST_P)
+    pg = PartitionedGraph.from_graph(g, p=DIST_P, device=dev)
+    ops = MeshOperands.build(pg, mesh)
+    print(f"distributed: p={DIST_P} shards on {mesh.distinct}, vp={pg.vp}, "
+          f"edges a shard {[s.src.numel() for s in ops.shards]}", flush=True)
+    modes = (("barrier", distributed_pagerank, dict(mode="barrier"), 1),
+             ("stale", distributed_pagerank,
+              dict(mode="stale", local_sweeps=DIST_SWEEPS), DIST_SWEEPS),
+             ("topk", distributed_pagerank_topk,
+              dict(local_sweeps=DIST_TOPK_SWEEPS, send_fraction=DIST_SEND_FRACTION),
+              DIST_TOPK_SWEEPS))
+    rounds = {}
+    oracles = {dangling: global_oracle(g, dangling=dangling) for dangling in (True, False)}
+    for dangling in (True, False):
+        ref, ref_err, _ = oracles[dangling]
+        for name, fn, kw, k in modes:
+            kw = dict(kw, threshold=SOLVE_THRESHOLD, handle_dangling=dangling,
+                      operands=ops)
+            with checked_rows(DIST_CHECKED_ROUNDS * DIST_P * k) as seen:
+                first = fn(pg, mesh, **kw)
+            check(seen["calls"] == min(first.sweeps, DIST_CHECKED_ROUNDS * DIST_P * k),
+                  f"distributed {name}: {seen['calls']} sweeps held")
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            r = fn(pg, mesh, **kw)
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            check(r.iterations == first.iterations and torch.equal(r.pr, first.pr),
+                  f"distributed {name}: two solves differ ({first.iterations} vs "
+                  f"{r.iterations} rounds)")
+            check(counts["spmv_csr_acc"] == r.sweeps == r.iterations * DIST_P * k,
+                  f"distributed {name}: {counts['spmv_csr_acc']} launches for "
+                  f"{r.sweeps} sweeps")
+            check(tuple(r.pr.shape) == (g.n,) and bool(torch.isfinite(r.pr).all()),
+                  f"distributed {name}: ranks of shape {tuple(r.pr.shape)} or not finite")
+            l1 = l1_norm(r.pr, ref)
+            check(l1 <= L1_DEFAULT, f"distributed {name} dangling={dangling}: "
+                  f"L1 {l1:.3e} > {L1_DEFAULT:g}")
+            rounds[(name, dangling)] = r.iterations
+            if dangling:
+                launches["spmv_csr_acc"][f"distributed_{name} (p={DIST_P})"] = \
+                    counts["spmv_csr_acc"]
+            print(f"distributed {name} handle_dangling={dangling}: p={DIST_P} "
+                  f"rounds={r.iterations} sweeps={r.sweeps} err={r.err:.3e} "
+                  f"wall_s={wall:.4f} ms_per_round={wall / r.iterations * 1e3:.3f} "
+                  f"l1={l1:.3e} (bound {L1_DEFAULT:g}, oracle error <= {ref_err:.1e}) "
+                  f"launches={counts}; first {seen['calls']} sweeps within the "
+                  f"entry bound of spmv_csr_rows_ref (worst "
+                  f"{seen['entry_rel']:.3e})", flush=True)
+    check(rounds[("stale", False)] <= rounds[("barrier", False)],
+          f"distributed: stale {rounds[('stale', False)]} rounds > barrier "
+          f"{rounds[('barrier', False)]} without dangling redistribution")
+    print(f"distributed rounds, barrier / stale / topk: with dangling "
+          f"{rounds[('barrier', True)]} / {rounds[('stale', True)]} / "
+          f"{rounds[('topk', True)]}, without {rounds[('barrier', False)]} / "
+          f"{rounds[('stale', False)]} / {rounds[('topk', False)]}", flush=True)
+
+    ref = oracles[True][0]
+    for variant in ("distributed_barrier", "distributed_stale", "distributed_topk"):
+        v, bundle = build_variant(variant, g, threads=56, device=dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        r = v.run(bundle, threshold=SOLVE_THRESHOLD, handle_dangling=True)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        l1 = l1_norm(r.pr, ref)
+        check(bundle.p == min(56, torch.cuda.device_count()) and l1 <= L1_DEFAULT
+              and counts["spmv_csr_acc"] == r.sweeps,
+              f"{variant} threads=56: p={bundle.p}, L1 {l1:.3e}, "
+              f"{counts['spmv_csr_acc']} launches for {r.sweeps} sweeps")
+        print(f"distributed registry {variant} threads=56: p={bundle.p} "
+              f"rounds={r.iterations} sweeps={r.sweeps} wall_s={wall:.4f} "
+              f"l1={l1:.3e} launches={counts}", flush=True)
+
+    # the partition SpMV at the shapes the p = 4 solves give it
+    gen = torch.Generator(device=dev).manual_seed(0)
+    contrib = torch.rand(pg.n_pad, generator=gen, device=dev) * pg.inv_out
+    part = {"max_abs_err": 0.0}
+    for i, sh in enumerate(ops.shards):
+        out = spmv_csr_rows(contrib, sh.in_ptr, sh.src, sh.weights)
+        plain = spmv_csr_rows_ref(contrib, sh.in_ptr, sh.src, sh.weights)
+        torch.cuda.synchronize()
+        err, _, _ = check_agreement(f"spmv_csr_rows (partition {i})", out, plain)
+        part["max_abs_err"] = max(part["max_abs_err"], err)
+    sh = ops.shards[0]
+    m0, gathered = sh.src.numel(), int(torch.unique(sh.src).numel())
+    csr = torch.sparse_csr_tensor(sh.in_ptr, sh.src, torch.ones(m0, device=dev),
+                                  (pg.vp, pg.n_pad))
+    part["ms"], part["ms_by"] = device_ms(
+        lambda: spmv_csr_rows(contrib, sh.in_ptr, sh.src), 50)
+    part["plain_ms"] = time_ms(lambda: spmv_csr_rows_ref(contrib, sh.in_ptr, sh.src), 20)
+    part["library_ms"], part["library_by"] = device_ms(lambda: torch.mv(csr, contrib), 50)
+    part["bound_ms"] = bound_ms(4 * gathered + 4 * (pg.vp + 1) + 4 * m0 + 4 * pg.vp)
+    print(f"kernel spmv_csr_rows partition 0 of {DIST_P} (rows {pg.vp}, edges "
+          f"{m0}, {gathered} sources): ms={part['ms']:.4f} (device, by "
+          f"{part['ms_by']}) plain_ms={part['plain_ms']:.4f} library_ms="
+          f"{part['library_ms']:.4f} (device, by {part['library_by']}; torch.sparse "
+          f"CSR mv) bound_ms={part['bound_ms']:.4f} (bytes); every partition "
+          f"within the entry bound (max_abs_err {part['max_abs_err']:.3e})", flush=True)
+
+    eng = PPREngine(g, slots=PPR_ROWS, threshold=ENGINE_THRESHOLD, handle_dangling=True,
+                    backend="cuda", mesh=mesh)
+    rows = PPR_ROWS // DIST_P
+    held = eng.iters_per_step * DIST_P  # a step: every shard's passes
+    with checked_multi(f"engine, {DIST_P} shards", held) as seen:
+        eng.drain(queries[:PPR_ROWS])
+    check(seen["calls"] == held and seen["rows"] == {rows},
+          f"sharded engine: {seen['calls']} gs_pass_multi calls held at rows "
+          f"{sorted(seen['rows'])}, want {held} at {rows}")
+    print(f"engine cuda, {DIST_P} shards: the first {seen['calls']} gs_pass_multi "
+          f"passes (b={rows}) within the entry bound of gs_pass_multi_ref (worst "
+          f"{seen['entry_rel']:.3e}), frozen rows bit-identical", flush=True)
+    eng.reset()  # a cold cache: the measured drain starts as the unsharded one
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.drain(queries)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(sorted(r.qid for r in out) == list(range(len(queries))),
+          f"sharded engine: {len(out)} responses for {len(queries)} queries")
+    check(counts["gs_pass_multi"] > 0, "sharded engine: no gs_pass_multi launch")
+    launches["gs_pass_multi"][f"engine, {DIST_P} shards"] = counts["gs_pass_multi"]
+    exact, worst = 0, 0.0
+    for r in out:
+        ref_row = oracle[_key(r.seeds)]
+        want, _ = topk(ref_row, r.indices.size)
+        check(_same_topk(r.indices, want, ref_row),
+              f"sharded engine: qid {r.qid} top-k {r.indices.tolist()} is not "
+              f"the oracle's {want.tolist()}")
+        worst = max(worst, float(np.abs(r.values - ref_row[r.indices]).max()))
+        other = unsharded[r.qid]
+        check(_same_topk(r.indices, other.indices, ref_row),
+              f"sharded engine: qid {r.qid} top-k differs from the unsharded engine's")
+        exact += bool(np.array_equal(r.indices, other.indices)
+                      and np.array_equal(r.values, other.values))
+    check(worst <= TOPK_VALUE_TOL, f"sharded engine: values off the oracle by {worst:.3e}")
+    lat = np.array([r.latency_s for r in out]) * 1e3
+    print(f"engine cuda, {PPR_ROWS} slots over {DIST_P} shards ({PPR_ROWS // DIST_P} "
+          f"rows a gs_pass_multi launch): wall_s={wall:.4f} "
+          f"qps={len(queries) / wall:.2f} p50_ms={np.percentile(lat, 50):.3f} "
+          f"p99_ms={np.percentile(lat, 99):.3f} top-k = oracle's (values within "
+          f"{worst:.2e}); bit for bit the unsharded engine's for {exact} of "
+          f"{len(out)} queries, the rest within oracle ties; launches={counts}",
+          flush=True)
+    return part, launches
 
 
 def dynamic_phase(g, dev):
@@ -2005,7 +2277,12 @@ def main() -> int:
         oracle = ppr_oracle(g, [q.seeds for q in queries] + [()])
         launches["gs_pass_multi"] = ppr_phase(g, dev, oracle)
     with phase_wall("engine"):
-        engine_phase(g, dev, oracle)
+        unsharded = engine_phase(g, dev, oracle)
+    with phase_wall("distributed"):
+        part, paths = distributed_phase(g, dev, oracle, queries[:ENGINE_QUERIES],
+                                        unsharded)
+        for kernel, by_path in paths.items():
+            launches[kernel].update(by_path)
     with phase_wall("dynamic"):
         for kernel, paths in dynamic_phase(g, dev).items():
             launches[kernel].update(paths)
@@ -2042,6 +2319,8 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": s["library_ms"],
             "timed_by": s["timed_by"],
             **({"k": s["k"], "D": s["D"]} if name == "gs_pass" else {}),
+            # one partition of the p = 4 distributed solves (spmv_csr_rows)
+            **({"partition_p4": part} if name == "spmv_csr_acc" else {}),
         })
     f = flash[(torch.bfloat16, None)]  # prefill's shape and dtype, causal
     kernels.append({

@@ -442,8 +442,11 @@ SCHEDULES = frozenset({"barrier", "nosync", "adaptive", "sequential"})
 # ``pr0`` is the warm-start vector, a numpy ``(n,)`` array.  ``device``
 # places the bundle (default ``cuda``; see repro_torch.device).  ``tile_cap``
 # is accepted for command-line parity with the reference and has no meaning
-# in the port's CSR layout.
-_TRANSPORT_OPTS = frozenset({"threads", "block", "tile_cap", "pr0", "device"})
+# in the port's CSR layout.  ``local_sweeps`` and ``send_fraction`` reach
+# the distributed variants (sweeps per exchange, the share of deltas
+# published a round), as in the reference.
+_TRANSPORT_OPTS = frozenset({"threads", "block", "tile_cap", "pr0", "device",
+                             "local_sweeps", "send_fraction"})
 
 
 def register_variant(name: str, build: Callable, run: Callable,
@@ -477,6 +480,7 @@ def register_variant(name: str, build: Callable, run: Callable,
 
 def _ensure_registered() -> None:
     # Variants self-register at import; pull in every module that defines one.
+    import repro_torch.core.distributed  # noqa: F401
     import repro_torch.core.pagerank  # noqa: F401
     import repro_torch.kernels.spmv.ops  # noqa: F401
     import repro_torch.ppr.batched  # noqa: F401

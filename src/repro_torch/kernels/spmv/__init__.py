@@ -4,12 +4,14 @@ from repro_torch.kernels.spmv.kernel import (
     launch_counts,
     reset_launch_counts,
     spmv_csr_acc,
+    spmv_csr_rows,
 )
 from repro_torch.kernels.spmv.ops import BlockedGraph, pagerank_blocked
 from repro_torch.kernels.spmv.ref import (
     gs_pass_multi_ref,
     gs_pass_ref,
     spmv_csr_acc_ref,
+    spmv_csr_rows_ref,
 )
 
 __all__ = [
@@ -18,9 +20,11 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
     "spmv_csr_acc",
+    "spmv_csr_rows",
     "BlockedGraph",
     "pagerank_blocked",
     "gs_pass_multi_ref",
     "gs_pass_ref",
     "spmv_csr_acc_ref",
+    "spmv_csr_rows_ref",
 ]

@@ -352,8 +352,10 @@ int search_levels(int n_rows) {
 //   G-th edge of a row's slice of each chunk of multi_chunk_edges(b) edges
 //   from the block's first edge, an xor tree joins the groups and the chunk
 //   sums are added in order (b = 1 is gs_pass's order).  For b > 32 each
-//   row is summed in edge order, the plain version's order.  A row cut by a
-//   round keeps its lane partials in shared memory (carry) until its slice
+//   row is summed in edge order, each round's run of it in double and
+//   rounded to float once (a float chain fell 3.4e-5 entry-wise off the
+//   plain version at b = 64 on full webStanford).  A row cut by a round
+//   keeps its lane partials in shared memory (carry) until its slice
 //   ends.  Loads run eight edges ahead of the adds; the adds keep their
 //   order.  The last round of a block commits each vertex as its sum ends.
 // * Products and the epilogue use round-to-nearest intrinsics, so nothing
@@ -474,17 +476,24 @@ __device__ __forceinline__ Round make_round(int db, int a0, const Bounds& bd, in
   return r;
 }
 
-// part += p[0] (* w[0]), p[step] (* w[wstep]), ... n values, in that order.
-// Loads run eight values ahead of the adds, so a long row costs about one
-// add latency a value; a contiguous run (step 1) loads 16 bytes at a time.
-template <bool HasW>
-__device__ __forceinline__ float sum_run(float part, const float* p, const float* w, int n,
-                                         int step, int wstep) {
+// a + x, rounded to nearest in the accumulator's type
+__device__ __forceinline__ float acc_add(float a, float x) { return __fadd_rn(a, x); }
+__device__ __forceinline__ double acc_add(double a, float x) {
+  return __dadd_rn(a, static_cast<double>(x));
+}
+
+// part += p[0] (* w[0]), p[step] (* w[wstep]), ... n values, in that order,
+// each product rounded to float and added in Acc.  Loads run eight values
+// ahead of the adds, so a long row costs about one add latency a value; a
+// contiguous run (step 1) loads 16 bytes at a time.
+template <bool HasW, typename Acc>
+__device__ __forceinline__ Acc sum_run(Acc part, const float* p, const float* w, int n,
+                                       int step, int wstep) {
   constexpr int kDepth = 8;
   int i = 0;
   if (step == 1) {
     for (; i < n && (reinterpret_cast<uintptr_t>(p + i) & 15) != 0; ++i) {
-      part = __fadd_rn(part, HasW ? __fmul_rn(p[i], w[i]) : p[i]);
+      part = acc_add(part, HasW ? __fmul_rn(p[i], w[i]) : p[i]);
     }
     auto load8 = [&](float (&v)[kDepth], int at) {
       const float4 a = *reinterpret_cast<const float4*>(p + at);
@@ -506,12 +515,12 @@ __device__ __forceinline__ float sum_run(float part, const float* p, const float
       for (i += kDepth; i + kDepth <= n; i += kDepth) {
         load8(nxt, i);
 #pragma unroll
-        for (int u = 0; u < kDepth; ++u) part = __fadd_rn(part, cur[u]);
+        for (int u = 0; u < kDepth; ++u) part = acc_add(part, cur[u]);
 #pragma unroll
         for (int u = 0; u < kDepth; ++u) cur[u] = nxt[u];
       }
 #pragma unroll
-      for (int u = 0; u < kDepth; ++u) part = __fadd_rn(part, cur[u]);
+      for (int u = 0; u < kDepth; ++u) part = acc_add(part, cur[u]);
     }
   } else if (n >= kDepth) {
     float cur[kDepth], nxt[kDepth];
@@ -526,15 +535,15 @@ __device__ __forceinline__ float sum_run(float part, const float* p, const float
         nxt[u] = HasW ? __fmul_rn(pn[u * step], w[(i + u) * wstep]) : pn[u * step];
       }
 #pragma unroll
-      for (int u = 0; u < kDepth; ++u) part = __fadd_rn(part, cur[u]);
+      for (int u = 0; u < kDepth; ++u) part = acc_add(part, cur[u]);
 #pragma unroll
       for (int u = 0; u < kDepth; ++u) cur[u] = nxt[u];
     }
 #pragma unroll
-    for (int u = 0; u < kDepth; ++u) part = __fadd_rn(part, cur[u]);
+    for (int u = 0; u < kDepth; ++u) part = acc_add(part, cur[u]);
   }
   for (; i < n; ++i) {
-    part = __fadd_rn(part, HasW ? __fmul_rn(p[i * step], w[i * wstep]) : p[i * step]);
+    part = acc_add(part, HasW ? __fmul_rn(p[i * step], w[i * wstep]) : p[i * step]);
   }
   return part;
 }
@@ -750,8 +759,16 @@ gs_pass_multi_kernel(float* pr, float* q, const float* __restrict__ inv_out,
           const int n = e < s1 ? (s1 - e + G - 1) / G : 0;
           if (lo < a0) part_sum = carry_in[g];
           const float* at = vl + (e - a0);
-          part_sum = wt != nullptr ? sum_run<true>(part_sum, at, wt + (e - a0), n, G, G)
-                                   : sum_run<false>(part_sum, at, nullptr, n, G, G);
+          if (in_chunk) {
+            part_sum = wt != nullptr ? sum_run<true>(part_sum, at, wt + (e - a0), n, G, G)
+                                     : sum_run<false>(part_sum, at, nullptr, n, G, G);
+          } else {  // a row's run of the round in double, rounded once
+            const double run =
+                wt != nullptr
+                    ? sum_run<true>(static_cast<double>(part_sum), at, wt + (e - a0), n, 1, 1)
+                    : sum_run<false>(static_cast<double>(part_sum), at, nullptr, n, 1, 1);
+            part_sum = __double2float_rn(run);
+          }
           if (hi > a1) carry_out[g] = part_sum;  // the slice goes on in the next round
           else add = true;
         }

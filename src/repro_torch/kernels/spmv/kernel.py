@@ -12,7 +12,9 @@ Graph operands are the port's in-CSR (:class:`repro_torch.kernels.spmv.ops.Block
 ``in_ptr`` int32 ``(n_blocks·block + 1,)``, ``src`` int32 ``(m,)``,
 optional ``weights`` float32 ``(m,)``; rank-shaped operands are float32
 ``(n_blocks, block)``, and the batched state of :func:`gs_pass_multi` is
-float32 ``(n_blocks, block, b)``, vertex-major.
+float32 ``(n_blocks, block, b)``, vertex-major.  :func:`spmv_csr_rows`
+takes one partition's own in-CSR (``(rows + 1,)``, its edges only) and
+gathers from the whole float32 ``(n_pad,)`` vector.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from repro_torch.kernels.spmv.ref import (
     gs_pass_multi_ref,
     gs_pass_ref,
     spmv_csr_acc_ref,
+    spmv_csr_rows_ref,
 )
 
 # The largest block any wrapper takes.  On the card gs_pass and
@@ -101,6 +104,29 @@ def _spmv_ctas(lib, index: int) -> int:
     return ctas
 
 
+def launch_spmv_csr_rows(lib, contrib: torch.Tensor, in_ptr: torch.Tensor,
+                         src: torch.Tensor, weights: torch.Tensor | None,
+                         n_rows: int) -> torch.Tensor:
+    """Launch ``spmv_csr_acc`` of the loaded library ``lib`` over the
+    ``n_rows`` rows of ``in_ptr`` on CUDA operands that a wrapper has
+    checked, without counting it; returns the ``(n_rows,)`` sums.  The
+    kernel reads ``contrib`` only at the ids in ``src``, so ``contrib`` may
+    be longer than ``n_rows``: a partition's rows gather from the whole
+    rank vector."""
+    dev = contrib.device
+    acc = torch.empty(n_rows, dtype=contrib.dtype, device=dev)
+    with torch.cuda.device(dev):
+        ctas = _spmv_ctas(lib, _device_index(dev))
+        scratch = torch.empty(2 * ctas, dtype=torch.int32, device=dev)  # CTA carries
+        err = lib.spmv_csr_acc(
+            contrib.data_ptr(), in_ptr.data_ptr(), src.data_ptr(),
+            None if weights is None else weights.data_ptr(), acc.data_ptr(),
+            n_rows, src.numel(), ctas, scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "spmv_csr_acc")
+    return acc
+
+
 def launch_spmv_csr_acc(lib, contrib: torch.Tensor, in_ptr: torch.Tensor,
                         src: torch.Tensor,
                         weights: torch.Tensor | None) -> torch.Tensor:
@@ -108,17 +134,8 @@ def launch_spmv_csr_acc(lib, contrib: torch.Tensor, in_ptr: torch.Tensor,
     operands that :func:`spmv_csr_acc` has checked and found not empty,
     without counting it; ``scripts/spmv_ablation.py`` launches copies of
     the source this way."""
-    acc = torch.empty_like(contrib)
-    dev = contrib.device
-    ctas = _spmv_ctas(lib, _device_index(dev))
-    scratch = torch.empty(2 * ctas, dtype=torch.int32, device=dev)  # CTA carries
-    err = lib.spmv_csr_acc(
-        contrib.data_ptr(), in_ptr.data_ptr(), src.data_ptr(),
-        None if weights is None else weights.data_ptr(), acc.data_ptr(),
-        contrib.numel(), src.numel(), ctas, scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "spmv_csr_acc")
-    return acc
+    return launch_spmv_csr_rows(lib, contrib, in_ptr, src, weights,
+                                contrib.numel()).view_as(contrib)
 
 
 def spmv_csr_acc(contrib: torch.Tensor, in_ptr: torch.Tensor,
@@ -145,6 +162,41 @@ def spmv_csr_acc(contrib: torch.Tensor, in_ptr: torch.Tensor,
     if contrib.numel() == 0:
         return torch.empty_like(contrib)
     acc = launch_spmv_csr_acc(build.load(), contrib, in_ptr, src, weights)
+    _LAUNCHES["spmv_csr_acc"] += 1
+    return acc
+
+
+def spmv_csr_rows(contrib: torch.Tensor, in_ptr: torch.Tensor,
+                  src: torch.Tensor,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Row-range SpMV ``acc[r] = Σ_{e ∈ in(r)} w_e · contrib[src_e]`` over
+    the ``rows = in_ptr.numel() − 1`` rows of one partition; returns
+    ``(rows,)``.  ``contrib`` is the whole float32 ``(n_pad,)`` vector and
+    ``src`` holds global ids into it; ``in_ptr`` is the partition's own
+    int32 in-CSR, starting at 0 and ending at ``src.numel()``.
+
+    The same CUDA kernel as :func:`spmv_csr_acc` (it takes the row count
+    apart from the gathered vector), launched once a call and counted
+    under ``spmv_csr_acc``: the distributed solvers sweep each shard's
+    partition with it."""
+    if contrib.dim() != 1 or in_ptr.dim() != 1 or in_ptr.numel() < 1:
+        raise ValueError(f"contrib must be (n,) and in_ptr (rows + 1,), got "
+                         f"{tuple(contrib.shape)} and {tuple(in_ptr.shape)}")
+    if contrib.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {contrib.device}")
+    rows = in_ptr.numel() - 1
+    dev = contrib.device
+    _check("contrib", contrib, torch.float32, contrib.shape, dev)
+    _check("in_ptr", in_ptr, torch.int32, in_ptr.shape, dev)
+    if src.dim() != 1:
+        raise ValueError("src must be 1-D")
+    _check("src", src, torch.int32, src.shape, dev)
+    _check("weights", weights, torch.float32, src.shape, dev)
+    if dev.type == "cpu":
+        return spmv_csr_rows_ref(contrib, in_ptr, src, weights)
+    if rows == 0:
+        return torch.empty(0, dtype=contrib.dtype, device=dev)
+    acc = launch_spmv_csr_rows(build.load(), contrib, in_ptr, src, weights, rows)
     _LAUNCHES["spmv_csr_acc"] += 1
     return acc
 
@@ -311,13 +363,14 @@ def launch_gs_pass_multi(lib, pr: torch.Tensor, inv_out: torch.Tensor,
     out = torch.empty_like(pr)
     out.copy_(pr)
     scaled = torch.empty((2, *pr.shape), dtype=pr.dtype, device=dev)  # pr · inv_out, old and new
-    err = lib.gs_pass_multi(
-        out.data_ptr(), scaled.data_ptr(), inv_out.data_ptr(), vmask.data_ptr(),
-        tele.data_ptr(),
-        coef.data_ptr(), None if frozen_rows is None else frozen_rows.data_ptr(),
-        float(d), in_ptr.data_ptr(), src.data_ptr(),
-        None if weights is None else weights.data_ptr(),
-        n_blocks, block, b, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # a serving shard may sit on another card
+        err = lib.gs_pass_multi(
+            out.data_ptr(), scaled.data_ptr(), inv_out.data_ptr(), vmask.data_ptr(),
+            tele.data_ptr(),
+            coef.data_ptr(), None if frozen_rows is None else frozen_rows.data_ptr(),
+            float(d), in_ptr.data_ptr(), src.data_ptr(),
+            None if weights is None else weights.data_ptr(),
+            n_blocks, block, b, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "gs_pass_multi")
     return out
 
@@ -352,8 +405,8 @@ def gs_pass_multi(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
     ``cp.async`` while it sums the current round, so a block step waits on
     no global round trip.  For ``b ≤ 32`` each row is summed in the parent
     kernel's order at the same ``b`` (with ``b = 1`` it computes exactly
-    what :func:`gs_pass` computes), for ``b > 32`` in edge order, the plain
-    version's."""
+    what :func:`gs_pass` computes), for ``b > 32`` in edge order, each
+    round's run of a row added in double and rounded once."""
     n_blocks, block = _check_graph(pr, in_ptr, src, weights,
                                    layout=("n_blocks", "block", "b"))
     b = pr.shape[2]

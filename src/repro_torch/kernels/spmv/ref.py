@@ -16,12 +16,20 @@ def spmv_csr_acc_ref(contrib: torch.Tensor, in_ptr: torch.Tensor,
     """``acc[v] = Σ_{e ∈ in(v)} w_e · contrib[src_e]`` in the
     ``(n_blocks, block)`` layout of ``contrib``; padding rows have no edges
     and come out 0."""
-    flat = contrib.reshape(-1)
-    vals = flat[src.long()]
+    return spmv_csr_rows_ref(contrib.reshape(-1), in_ptr, src,
+                             weights).reshape(contrib.shape)
+
+
+def spmv_csr_rows_ref(contrib: torch.Tensor, in_ptr: torch.Tensor,
+                      src: torch.Tensor,
+                      weights: torch.Tensor | None = None) -> torch.Tensor:
+    """``acc[r] = Σ_{e ∈ in(r)} w_e · contrib[src_e]`` over the
+    ``in_ptr.numel() − 1`` rows of one partition: ``(rows,)``, gathered
+    from the whole ``(n,)`` vector ``contrib`` at the global ids ``src``."""
+    vals = contrib[src.long()]
     if weights is not None:
         vals = vals * weights
-    acc = torch.segment_reduce(vals, "sum", offsets=in_ptr)
-    return acc.reshape(contrib.shape)
+    return torch.segment_reduce(vals, "sum", offsets=in_ptr)
 
 
 def gs_pass_ref(pr: torch.Tensor, inv_out: torch.Tensor, vmask: torch.Tensor,
@@ -82,6 +90,7 @@ def gs_pass_multi_ref(pr: torch.Tensor, inv_out: torch.Tensor,
     vm = vmask.reshape(-1, 1)
     tl = tele.reshape(-1, b)
     ptr = in_ptr.tolist()
+    rows = torch.arange(b, device=in_ptr.device).unsqueeze(1)
     for db in range(n_blocks):
         v0, v1 = db * block, (db + 1) * block
         e0, e1 = ptr[v0], ptr[v1]
@@ -89,7 +98,16 @@ def gs_pass_multi_ref(pr: torch.Tensor, inv_out: torch.Tensor,
         vals = out[s] * inv[s].unsqueeze(1)
         if weights is not None:
             vals = vals * weights[e0:e1].unsqueeze(1)
-        acc = torch.segment_reduce(vals, "sum", offsets=in_ptr[v0:v1 + 1] - e0)
+        # row-major: each row's segments one after another in one 1-D
+        # reduction.  On a 2-D (edges, b) tensor CUDA's segment_reduce
+        # adds each segment's terms one by one, 1.755e-5 off float64 at a
+        # 26,088-edge vertex of webStanford (scripts/ppr_sum_accuracy.py);
+        # on 1-D data it sums by a tree.  On the CPU both add in edge
+        # order: the same bits.
+        off = (in_ptr[v0:v1] - e0).unsqueeze(0) + rows * (e1 - e0)
+        off = torch.cat([off.reshape(-1), off.new_tensor([b * (e1 - e0)])])
+        acc = torch.segment_reduce(vals.t().reshape(-1), "sum",
+                                   offsets=off).reshape(b, block).t()
         new = (tl[v0:v1] * coef + d * acc) * vm[v0:v1]
         if frozen_rows is not None:
             new = torch.where(frozen_rows, out[v0:v1], new)

@@ -27,9 +27,11 @@ on the updated graph, stale cached answers are dropped):
     ... -m repro_torch.launch.pagerank_run serve --backend cuda \
         --slots 8 --queries 32 --updates 500 --update-batches 2
 
-The reference launcher's ``--store``, ``--ckpt`` and its ``build``
-subcommand come with later slices of the port, and ``serve
---mesh-shards`` above 1 with the distributed slice; asking for them
+``serve --mesh-shards N`` splits the slot batch over
+``make_serving_mesh(N)``: ``min(N, cards)`` shards (one on the CPU).
+``--local-sweeps`` and ``--send-fraction`` reach the ``distributed_*``
+variants.  The reference launcher's ``--store``, ``--ckpt`` and its
+``build`` subcommand come with later slices of the port; asking for them
 raises.
 """
 from __future__ import annotations
@@ -186,8 +188,8 @@ def serve(argv) -> dict:
                     help="per-query queue-wait deadline; expired queries are "
                          "dropped, never solved (0 = none)")
     ap.add_argument("--mesh-shards", type=int, default=0,
-                    help="shard the slot batch over this many devices; above "
-                         "1 it is not ported yet")
+                    help="shard the slot batch over this many devices "
+                         "(capped at the cards present; 0 = no mesh)")
     ap.add_argument("--zipf-alpha", type=float, default=1.1,
                     help="seed-popularity skew of the --qps workload")
     ap.add_argument("--updates", type=int, default=0, metavar="N",
@@ -202,22 +204,25 @@ def serve(argv) -> dict:
     args = ap.parse_args(argv)
     if args.queries < 1:
         ap.error("--queries must be >= 1")
-    if args.mesh_shards > 1:
-        raise NotImplementedError(
-            "--mesh-shards above 1 is not ported yet: a slot batch split "
-            "across devices comes with the distributed slice of the port")
 
     from repro_torch.core.dynamic import make_update_injector, random_update_batch
     from repro_torch.serving import PPREngine, make_query_stream
 
     g = make_dataset(args.dataset, scale_down=args.scale_down)
+    mesh = None
+    if args.mesh_shards > 0:
+        from repro_torch.launch.mesh import make_serving_mesh
+
+        mesh = make_serving_mesh(args.mesh_shards, device=args.device)
     eng = PPREngine(g, slots=args.slots, threshold=args.threshold,
-                    backend=args.backend, device=args.device,
+                    backend=args.backend, device=args.device, mesh=mesh,
                     handle_dangling=args.handle_dangling)
     name = (torch.cuda.get_device_name(0) if eng.device.type == "cuda"
             else "cpu")
+    shards = mesh.size if mesh is not None else 1
     print(f"{args.dataset}: n={g.n} m={g.m}  slots={args.slots} "
-          f"backend={args.backend} device={args.device} ({name}) mesh_shards=1")
+          f"backend={args.backend} device={args.device} ({name}) "
+          f"mesh_shards={shards}")
     runtime = _VersionedRuntime(
         eng, queue_depth=args.queue_depth,
         deadline_s=args.deadline_ms * 1e-3 if args.deadline_ms > 0 else None)
@@ -328,6 +333,10 @@ def run(argv=None) -> dict:
     ap.add_argument("--tile-cap", type=int, default=1024,
                     help="accepted for parity with the reference; the port's "
                          "CSR layout has no tiles")
+    ap.add_argument("--local-sweeps", type=int, default=4,
+                    help="distributed: sweeps per exchange (staleness bound)")
+    ap.add_argument("--send-fraction", type=float, default=0.125,
+                    help="distributed_topk: fraction of deltas published per round")
     ap.add_argument("--handle-dangling", action="store_true",
                     help="redistribute dangling mass uniformly (all variants)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -352,7 +361,8 @@ def run(argv=None) -> dict:
     g = make_dataset(args.dataset, scale_down=args.scale_down)
     print(f"{args.dataset}: n={g.n} m={g.m} (scale_down={args.scale_down:g})")
     opts = dict(threads=args.threads, block=args.block, tile_cap=args.tile_cap,
-                device=args.device)
+                local_sweeps=args.local_sweeps,
+                send_fraction=args.send_fraction, device=args.device)
     v, bundle = build_variant(args.variant, g, **opts)
     name = (torch.cuda.get_device_name(0) if args.device == "cuda"
             else "cpu")

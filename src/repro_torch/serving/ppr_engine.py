@@ -29,8 +29,12 @@ same device with the same options, drops the warm-cache rows the batch may
 have moved, and fires ``update_callbacks`` (the serving runtime's
 result-cache invalidation).
 
-Not ported yet: serving a batch split across devices (``mesh=``), which
-comes with the distributed slice; it raises ``NotImplementedError``.
+With ``mesh=`` (a 1-D :class:`repro_torch.core.distributed.ShardMesh`,
+``launch/mesh.py::make_serving_mesh``) the batch is split across the
+mesh's devices (:func:`shard_batch_step`): each shard owns ``slots/shards``
+consecutive slot rows and advances them with its own sweep on its device.
+Rows are independent solves, so no exchange runs inside a step; a step
+enqueues every shard's passes before it reads any shard's errors back.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import ShardMesh
 from repro_torch.core.pagerank import DeviceGraph
 from repro_torch.core.solver import DEFAULT_DAMPING
 from repro_torch.device import resolve_device
@@ -59,7 +64,8 @@ from repro_torch.ppr.batched import (
 )
 from repro_torch.ppr.push import topk
 
-__all__ = ["PPRQuery", "PPRResponse", "PPREngine", "make_query_stream"]
+__all__ = ["PPRQuery", "PPRResponse", "PPREngine", "make_query_stream",
+           "shard_batch_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,20 +133,31 @@ class _Active:
     warm: bool = False
 
 
+def _to_device(bundle, device):
+    """A copy of the dataclass ``bundle`` with every tensor on ``device``."""
+    return dataclasses.replace(bundle, **{
+        f.name: getattr(bundle, f.name).to(device)
+        for f in dataclasses.fields(bundle)
+        if isinstance(getattr(bundle, f.name), torch.Tensor)})
+
+
 class _TorchBackend:
     """``(slots, n)`` rank batch advanced by the batched vertex-centric
-    sweep (the reference's ``_JaxBackend``)."""
+    sweep (the reference's ``_JaxBackend``).  ``graph`` is a built
+    :class:`DeviceGraph` to share (a serving shard's), else one is built
+    from ``g`` on ``device``."""
 
     def __init__(self, g: Graph, *, slots: int, d: float,
-                 handle_dangling: bool, iters_per_step: int, device):
-        dg = DeviceGraph.from_graph(g, device)
-        self.n = g.n
+                 handle_dangling: bool, iters_per_step: int, device,
+                 graph: DeviceGraph | None = None):
+        dg = DeviceGraph.from_graph(g, device) if graph is None else graph
+        self.graph, self.n = dg, g.n
         self.iters_per_step = iters_per_step
         self.sweep = make_batched_sweep(dg.src, dg.in_ptr, dg.inv_out,
                                         dg.dangling, dg.weights, n=g.n, d=d,
                                         handle_dangling=handle_dangling)
-        self.state = torch.zeros((slots, g.n), device=device)
-        self.tele = torch.zeros((slots, g.n), device=device)
+        self.state = torch.zeros((slots, g.n), device=dg.inv_out.device)
+        self.tele = torch.zeros((slots, g.n), device=dg.inv_out.device)
 
     def set_row(self, slot: int, row: np.ndarray, trow: np.ndarray) -> None:
         self.state[slot] = torch.as_tensor(row, dtype=torch.float32)
@@ -149,8 +166,11 @@ class _TorchBackend:
     def get_row(self, slot: int) -> np.ndarray:
         return self.state[slot].double().cpu().numpy()
 
-    def step(self, frozen: np.ndarray) -> np.ndarray:
-        fz = torch.as_tensor(frozen, device=self.state.device)[:, None]
+    def step_async(self, frozen: torch.Tensor) -> torch.Tensor:
+        """Enqueue ``iters_per_step`` passes, ``frozen`` a bool ``(slots,)``
+        tensor on the state's device; returns the per-row errors of the
+        last pass, still on the device."""
+        fz = frozen[:, None]
         pr = self.state
         # no pass leaves every row unconverged, as the reference's loop does
         err = torch.full((pr.shape[0],), float("inf"), device=pr.device)
@@ -159,26 +179,28 @@ class _TorchBackend:
             err = torch.amax(torch.abs(new - pr), dim=1)
             pr = new
         self.state = pr
-        return err.cpu().numpy()
+        return err
 
 
 class _KernelBackend:
     """Vertex-major ``(n_blocks, block, slots)`` rank batch advanced by the
     multi-row blocked Gauss–Seidel kernel (the reference's
-    ``_PallasBackend``)."""
+    ``_PallasBackend``).  ``graph`` is a built :class:`BlockedGraph` to
+    share (a serving shard's), else one is built from ``g`` on
+    ``device``."""
 
     def __init__(self, g: Graph, *, slots: int, d: float,
                  handle_dangling: bool, iters_per_step: int, device,
-                 block: int = 256):
-        bg = BlockedGraph.build(g, block=block, device=device)
-        self.n = g.n
+                 block: int = 256, graph: BlockedGraph | None = None):
+        bg = BlockedGraph.build(g, block=block, device=device) if graph is None else graph
+        self.graph, self.n = bg, g.n
         self.block = bg.block
         self.iters_per_step = iters_per_step
         self.sweep = make_batched_blocked_sweep(bg, d=d,
                                                 handle_dangling=handle_dangling)
         shape = (bg.n_blocks, bg.block, slots)
-        self.state = torch.zeros(shape, device=device)
-        self.tele = torch.zeros(shape, device=device)
+        self.state = torch.zeros(shape, device=bg.vmask.device)
+        self.tele = torch.zeros(shape, device=bg.vmask.device)
 
     def set_row(self, slot: int, row: np.ndarray, trow: np.ndarray) -> None:
         write_blocked_row(self.state, slot, row)
@@ -187,16 +209,76 @@ class _KernelBackend:
     def get_row(self, slot: int) -> np.ndarray:
         return read_blocked_row(self.state, slot, self.n)
 
-    def step(self, frozen: np.ndarray) -> np.ndarray:
-        fz = torch.as_tensor(frozen, device=self.state.device)
+    def step_async(self, frozen: torch.Tensor) -> torch.Tensor:
+        """As :meth:`_TorchBackend.step_async`."""
         pr = self.state
         err = torch.full((pr.shape[BATCH_AXIS],), float("inf"), device=pr.device)
         for _ in range(self.iters_per_step):
-            new = self.sweep(pr, self.tele, fz)
+            new = self.sweep(pr, self.tele, frozen)
             err = torch.amax(torch.abs(new - pr), dim=ROW_AXES)
             pr = new
         self.state = pr
-        return err.cpu().numpy()
+        return err
+
+
+class _ShardedBackend:
+    """A slot batch split over a mesh: shard ``i`` owns slots
+    ``[i·rows, (i+1)·rows)`` in its own backend on its device.  The
+    engine steps every batch through it; without a mesh it has one
+    shard."""
+
+    def __init__(self, shards: list, rows: int):
+        self.shards = shards
+        self.rows = rows
+        self.n = shards[0].n
+        if hasattr(shards[0], "block"):
+            self.block = shards[0].block
+
+    def set_row(self, slot: int, row: np.ndarray, trow: np.ndarray) -> None:
+        self.shards[slot // self.rows].set_row(slot % self.rows, row, trow)
+
+    def get_row(self, slot: int) -> np.ndarray:
+        return self.shards[slot // self.rows].get_row(slot % self.rows)
+
+    def step(self, frozen: np.ndarray) -> np.ndarray:
+        # every mask on its card first, then every shard's passes, then
+        # the errors: no host read sits between two shards' launches
+        masks = [torch.as_tensor(frozen[i * self.rows:(i + 1) * self.rows],
+                                 device=s.state.device)
+                 for i, s in enumerate(self.shards)]
+        errs = [s.step_async(fz) for s, fz in zip(self.shards, masks)]
+        return np.concatenate([e.cpu().numpy() for e in errs])
+
+
+def shard_batch_step(backend_cls, g: Graph, mesh: ShardMesh, *, slots: int,
+                     **opts) -> _ShardedBackend:
+    """Split a ``slots``-row batch of ``backend_cls`` over the 1-D ``mesh``
+    (``launch/mesh.py::make_serving_mesh``): shard ``i`` owns
+    ``slots/shards`` consecutive slot rows and runs the backend's own sweep
+    on ``mesh.devices[i]``; ``opts`` are the backend's options.  The graph
+    operands are built once, by the first shard, and copied once to each
+    other distinct device of the mesh.
+
+    Batch rows are independent solves, so no collective runs inside a
+    step.  On a one-device mesh the shard runs the unsharded program on
+    the same operands: the serving tests assert equal answers, bit for
+    bit."""
+    if not isinstance(mesh, ShardMesh):
+        raise ValueError(f"serving mesh must be a 1-D ShardMesh, got {mesh!r}")
+    if slots % mesh.size:
+        raise ValueError(
+            f"slots ({slots}) must be divisible by the mesh axis size "
+            f"({mesh.size}) — each device owns slots/shards rows")
+    rows = slots // mesh.size
+    first = backend_cls(g, slots=rows, device=mesh.devices[0], **opts)
+    graphs = {mesh.devices[0]: first.graph}
+    shards = [first]
+    for dev in mesh.devices[1:]:
+        if dev not in graphs:
+            graphs[dev] = _to_device(first.graph, dev)
+        shards.append(backend_cls(g, slots=rows, device=dev, graph=graphs[dev],
+                                  **opts))
+    return _ShardedBackend(shards, rows)
 
 
 _BACKENDS = {"torch": _TorchBackend, "cuda": _KernelBackend}
@@ -213,8 +295,10 @@ class PPREngine:
     (the reference's ``"jax"`` and ``"pallas"``, see the module
     docstring); both honour weighted/biased graphs, the bias folding into
     each teleport row at submit time.  ``device`` places the batch
-    (default ``cuda``); ``backend_opts`` pass through to the backend
-    (``block`` for ``cuda``)."""
+    (default ``cuda``); with a ``mesh`` (a 1-D :class:`ShardMesh` whose
+    size divides ``slots``) the batch is split over the mesh's devices
+    instead, and ``device`` defaults to its first.  ``backend_opts`` pass
+    through to the backend (``block`` for ``cuda``)."""
 
     def __init__(self, g: Graph, *, slots: int = 8, d: float = DEFAULT_DAMPING,
                  threshold: float = 1e-7, handle_dangling: bool = False,
@@ -227,9 +311,11 @@ class PPREngine:
         if g.n == 0:
             raise ValueError("cannot serve PPR over an empty graph")
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet: a batch split across devices comes "
-                "with the distributed slice of the port")
+            if not isinstance(mesh, ShardMesh):
+                raise ValueError(f"serving mesh must be a 1-D ShardMesh, got {mesh!r}")
+            if device is not None and resolve_device(device).type != mesh.devices[0].type:
+                raise ValueError(f"device {device} is not where the mesh "
+                                 f"{mesh.devices} serves")
         self.g = g
         self.slots = slots
         self.d = d
@@ -238,7 +324,8 @@ class PPREngine:
         self.iters_per_step = iters_per_step
         self.backend_name = backend
         # kept so the backend rebuilt after an update is the same
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         self.backend_opts = dict(backend_opts)
         self._backend = self._make_backend(g)
         self._active: list[Optional[_Active]] = [None] * slots
@@ -255,11 +342,11 @@ class PPREngine:
         self.update_callbacks: list = []
 
     def _make_backend(self, g: Graph):
-        return _BACKENDS[self.backend_name](
-            g, slots=self.slots, d=self.d,
-            handle_dangling=self.handle_dangling,
-            iters_per_step=self.iters_per_step, device=self.device,
-            **self.backend_opts)
+        return shard_batch_step(
+            _BACKENDS[self.backend_name], g,
+            self.mesh or ShardMesh((self.device,)), slots=self.slots,
+            d=self.d, handle_dangling=self.handle_dangling,
+            iters_per_step=self.iters_per_step, **self.backend_opts)
 
     @property
     def cache_block(self) -> int:

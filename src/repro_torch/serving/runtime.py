@@ -37,8 +37,9 @@ into a production-shaped queueing system:
   harvest timers, queue-depth + slot-occupancy gauges, offered/completed/
   rejected/expired/cache counters) that the launcher summary prints.
 
-The engine serves on one device (``mesh=`` is not ported), so
-``stats()["mesh_shards"]`` is 1.
+With ``PPREngine(mesh=...)`` the engine's slot batch is split across the
+mesh's devices; the runtime's scheduling is unchanged, and
+``stats()["mesh_shards"]`` is the mesh's size (1 without a mesh).
 """
 from __future__ import annotations
 
@@ -346,7 +347,7 @@ class ServingRuntime:
         return {
             "backend": eng.backend_name,
             "slots": eng.slots,
-            "mesh_shards": 1,
+            "mesh_shards": eng.mesh.size if eng.mesh is not None else 1,
             "queue_depth_limit": self.queue_depth,
             "result_cache": {"len": len(self._results),
                              "limit": self._results_size},

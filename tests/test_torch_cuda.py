@@ -22,7 +22,13 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.pagerank import l1_norm, pagerank_numpy
+from repro_torch.core.distributed import (
+    MeshOperands,
+    ShardMesh,
+    distributed_pagerank,
+    distributed_pagerank_topk,
+)
+from repro_torch.core.pagerank import PartitionedGraph, l1_norm, pagerank_numpy
 from repro_torch.core.solver import solve_variant
 from repro_torch.ppr import ppr_numpy, teleport_from_seeds
 from repro_torch.ppr.batched import bias_scaled, blocked_rows
@@ -48,6 +54,8 @@ from repro_torch.kernels.spmv import (
     reset_launch_counts,
     spmv_csr_acc,
     spmv_csr_acc_ref,
+    spmv_csr_rows,
+    spmv_csr_rows_ref,
 )
 
 sys.path.append(str(pathlib.Path(__file__).resolve().parent.parent))
@@ -203,7 +211,7 @@ def test_gs_pass_multi_reads_the_block_just_committed(cuda, b):
     assert float(((ref - stale).abs() / scale)[1:].min()) > 100 * RTOL
 
 
-@pytest.mark.parametrize("b", [1, 5, 33, 64])
+@pytest.mark.parametrize("b", [1, 2, 5, 33, 64])
 @pytest.mark.parametrize("gname", ["rmat", "rmat_weighted", "hub"])
 def test_gs_pass_multi_rows_across_ctas(cuda, gname, b):
     """Widths that are not a multiple of the rows a CTA owns, frozen rows
@@ -373,7 +381,32 @@ def _multi_inputs(g, bg, b, cuda, seed):
     return pr, tele, coef, frozen
 
 
-@pytest.mark.parametrize("b", [1, 3, 8, 40])
+@pytest.mark.parametrize("b", [2, 8, 64])
+def test_gs_pass_multi_plain_sums_a_wide_hub_as_float64(cuda, b):
+    """A vertex of 40,000 in-edges: the plain version within RTOL / 10 of
+    the same pass in float64, and the kernel within RTOL (RTOL / 10 above
+    32 rows).  The plain version sums each row's segments as 1-D data: on
+    a 2-D (edges, b) tensor CUDA's segment_reduce adds a segment's terms
+    one by one in float, whose error grows with the segment's length.
+    Above 32 rows the kernel sums a row in edge order, each round's run in
+    double (scripts/ppr_sum_accuracy.py measures both on webStanford)."""
+    n = 40_001
+    star = Graph.from_edges(n, np.arange(1, n), np.zeros(n - 1, np.int64))
+    bg = BlockedGraph.build(star, block=256, device=cuda)
+    pr, tele, coef, frozen = _multi_inputs(star, bg, b, cuda, seed=b)
+    args = (bg.inv_out, bg.vmask, tele, coef, 0.85, bg.in_ptr, bg.src,
+            bg.weights, frozen)
+    exact = gs_pass_multi_ref(pr.double(), *(
+        a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+        for a in args))
+    plain = gs_pass_multi_ref(pr, *args)
+    out = gs_pass_multi(pr, *args)
+    torch.cuda.synchronize()
+    assert _rel_err(plain.double(), exact) <= RTOL / 10
+    assert _rel_err(out.double(), exact) <= (RTOL / 10 if b > 32 else RTOL)
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 8, 40])
 @pytest.mark.parametrize("block", [64, 256])
 @pytest.mark.parametrize("gname", ["rmat", "rmat_weighted", "hub"])
 def test_gs_pass_multi_matches_plain(cuda, gname, block, b):
@@ -522,6 +555,64 @@ def test_engine_kernel_backend_on_card_matches_torch_backend(cuda):
         assert (ref[r.indices] >= kth - 1e-6).all()
         assert np.abs(r.values - ref[r.indices]).max() < 1e-5
         assert np.abs(r.values - by_qid[r.qid].values).max() < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the distributed solvers and the sharded engine: several shards on one card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("p", [1, 3, 4])
+@pytest.mark.parametrize("gname", ["rmat", "rmat_weighted", "hub"])
+def test_spmv_csr_rows_matches_plain_on_partitions(cuda, gname, p):
+    """Every partition of a real graph (the last one padded where p does
+    not divide n), gathered from the whole vector: one launch each."""
+    g = _graphs()[gname]
+    pg = PartitionedGraph.from_graph(g, p=p, device=cuda)
+    ops = MeshOperands.build(pg, ShardMesh((cuda,) * p))
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    contrib = torch.rand(pg.n_pad, generator=gen, device=cuda)
+    reset_launch_counts()
+    for s in ops.shards:
+        out = spmv_csr_rows(contrib, s.in_ptr, s.src, s.weights)
+        ref = spmv_csr_rows_ref(contrib, s.in_ptr, s.src, s.weights)
+        torch.cuda.synchronize()
+        assert out.shape == (pg.vp,)
+        assert _rel_err(out, ref) <= RTOL
+    assert launch_counts()["spmv_csr_acc"] == p
+
+
+@pytest.mark.parametrize("handle_dangling", [False, True])
+def test_distributed_solvers_on_card_match_oracle(cuda, handle_dangling):
+    g = rmat_graph(10, avg_degree=8, seed=4)
+    ref, _ = pagerank_numpy(g, threshold=1e-12, handle_dangling=handle_dangling)
+    pg = PartitionedGraph.from_graph(g, p=4, device=cuda)
+    mesh = ShardMesh((cuda,) * 4)
+    for mode in ("barrier", "stale", "topk"):
+        reset_launch_counts()
+        kw = dict(threshold=1e-8, handle_dangling=handle_dangling)
+        r = (distributed_pagerank_topk(pg, mesh, **kw) if mode == "topk"
+             else distributed_pagerank(pg, mesh, mode=mode, **kw))
+        assert launch_counts()["spmv_csr_acc"] == r.sweeps > 0, mode
+        assert r.pr.device.type == "cuda"
+        assert l1_norm(r.pr, ref) < 1e-5, mode
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_engine_on_card_matches_oracle(cuda, shards):
+    g = make_dataset("webStanford", scale_down=64)
+    qs = make_query_stream(g.n, 16, seed=0)
+    reset_launch_counts()
+    out = PPREngine(g, slots=8, threshold=1e-7, backend="cuda", handle_dangling=True,
+                    mesh=ShardMesh((cuda,) * shards)).drain(qs)
+    assert launch_counts()["gs_pass_multi"] > 0
+    assert sorted(r.qid for r in out) == list(range(16))
+    for r in out:
+        ref = ppr_numpy(g, teleport_from_seeds([r.seeds], g.n), threshold=1e-12,
+                        handle_dangling=True)[0][0]
+        kth = np.sort(ref)[::-1][r.indices.size - 1]
+        assert (ref[r.indices] >= kth - 1e-6).all()
+        assert np.abs(r.values - ref[r.indices]).max() < 1e-5
 
 
 # ---------------------------------------------------------------------------

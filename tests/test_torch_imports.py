@@ -4,7 +4,8 @@ scripts import neither JAX nor anything of the reference package ``repro``
 
 Every ``.py`` under ``src/repro_torch/``, ``chip_smoke.py`` and the
 card scripts (``scripts/first_solve.py``, ``scripts/flash_ablation.py``,
-``scripts/spmv_ablation.py``, ``scripts/spmv_times.py``) is parsed with ``ast`` — nothing is imported
+``scripts/ppr_sum_accuracy.py``, ``scripts/spmv_ablation.py``,
+``scripts/spmv_times.py``) is parsed with ``ast`` — nothing is imported
 or run.
 """
 import ast
@@ -16,8 +17,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / name
-    for name in ("first_solve.py", "flash_ablation.py", "spmv_ablation.py",
-                 "spmv_times.py")]
+    for name in ("first_solve.py", "flash_ablation.py", "ppr_sum_accuracy.py",
+                 "spmv_ablation.py", "spmv_times.py")]
 
 
 def forbidden_imports(tree: ast.AST) -> list[str]:
@@ -67,4 +68,10 @@ def test_audit_catches_forbidden_forms(src, bad):
     "core/dynamic.py", "serving/runtime.py", "serving/loadgen.py",
     "serving/metrics.py", "launch/pagerank_run.py"])
 def test_the_audit_covers_the_dynamic_and_serving_modules(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", [
+    "core/distributed.py", "launch/mesh.py", "serving/ppr_engine.py"])
+def test_the_audit_covers_the_distributed_modules(module):
     assert ROOT / "src" / "repro_torch" / module in FILES

@@ -13,6 +13,13 @@ CPU, against the JAX reference's ``PPREngine`` and the float64 oracle.
   backend does not trace under the installed JAX.
 * The reference's engine checks (``tests/test_ppr.py``): warm starts,
   rejection when full, per-slot early exit, ``reset``, a malformed query.
+* A slot batch split over a mesh of CPU shards, as the reference's
+  ``tests/test_serving.py`` checks it: a one-shard mesh gives the
+  unsharded answers bit for bit on both backends; an 8-shard mesh on the
+  torch backend (``rmat_graph(7, avg_degree=6, seed=3)``, 12 queries, 8
+  slots, threshold 1e-7, the reference's ``_MESH_SCRIPT``) too, in
+  process; 2 and 4 shards on the cuda backend give the same top-k; an
+  update rebuilds every shard.
 """
 import jax  # noqa: F401
 import numpy as np
@@ -22,6 +29,7 @@ import torch
 from repro.serving.ppr_engine import PPREngine as RefPPREngine
 from repro.serving.ppr_engine import PPRQuery as RefPPRQuery
 from repro.serving.ppr_engine import make_query_stream as ref_make_query_stream
+from repro_torch.core import ShardMesh
 from repro_torch.graphs import Graph, rmat_graph
 from repro_torch.kernels.spmv import launch_counts
 from repro_torch.ppr import ppr_numpy, teleport_from_seeds
@@ -193,7 +201,7 @@ def test_engine_rejects_unknown_backend_empty_graph_and_later_slices():
     empty = Graph.from_edges(0, np.zeros(0, np.int32), np.zeros(0, np.int32))
     with pytest.raises(ValueError, match="empty"):
         PPREngine(empty, device=CPU)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="1-D ShardMesh"):
         PPREngine(g, mesh=object(), device=CPU)
     with pytest.raises(TypeError):
         PPREngine(g, backend="torch", block=64, device=CPU)
@@ -221,3 +229,73 @@ def test_engine_malformed_query_cannot_poison_the_batch(backend):
     assert eng.active_count == 0  # nothing started before validation
     resp = eng.drain([PPRQuery(qid=0, seeds=(2,))])  # engine still healthy
     assert [r.qid for r in resp] == [0]
+
+
+# ---------------------------------------------------------------------------
+# a slot batch split over a mesh
+# ---------------------------------------------------------------------------
+
+
+def _same_answers(a, b) -> bool:
+    """Equal qids, top-k indices, values (bit for bit) and iterations."""
+    a, b = (sorted(x, key=lambda r: r.qid) for x in (a, b))
+    return len(a) == len(b) and all(
+        x.qid == y.qid and np.array_equal(x.indices, y.indices)
+        and np.array_equal(x.values, y.values) and x.iterations == y.iterations
+        for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("backend", sorted(BACKENDS))
+def test_mesh1_topk_identical_to_unsharded(backend):
+    g = rmat_graph(6, avg_degree=6, seed=3)
+    qs = make_query_stream(g.n, 6, top_k=8, seed=0)
+    plain = engine(g, backend, slots=4, threshold=PARITY_THRESH).drain(qs)
+    sharded = engine(g, backend, slots=4, threshold=PARITY_THRESH,
+                     mesh=ShardMesh((CPU,))).drain(qs)
+    assert _same_answers(plain, sharded)
+
+
+def test_mesh8_sharded_matches_single_device():
+    g = rmat_graph(7, avg_degree=6, seed=3)
+    qs = make_query_stream(g.n, 12, top_k=8, seed=1)
+    plain = engine(g, slots=8, threshold=1e-7).drain(qs)
+    eng = engine(g, slots=8, threshold=1e-7, mesh=ShardMesh((CPU,) * 8))
+    assert len(eng._backend.shards) == 8 and eng._backend.rows == 1
+    # the graph operands are built once and shared by the shards of a device
+    assert all(sh.graph is eng._backend.shards[0].graph for sh in eng._backend.shards)
+    assert _same_answers(plain, eng.drain(qs))
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_cuda_backend_gives_the_same_topk(shards):
+    g = rmat_graph(7, avg_degree=6, seed=3)
+    qs = make_query_stream(g.n, 12, top_k=8, seed=1)
+    plain = engine(g, "cuda", slots=8, threshold=1e-7).drain(qs)
+    sharded = engine(g, "cuda", slots=8, threshold=1e-7,
+                     mesh=ShardMesh((CPU,) * shards)).drain(qs)
+    assert _same_answers(plain, sharded)
+    assert launch_counts()["gs_pass_multi"] == 0  # the CPU runs the twin
+
+
+@pytest.mark.parametrize("backend", sorted(BACKENDS))
+def test_sharded_engine_rebuilds_every_shard_on_update(backend):
+    g = rmat_graph(7, avg_degree=6, seed=3)
+    qs = make_query_stream(g.n, 8, top_k=8, seed=2)
+    adds = np.array([[1, 5], [9, 2], [40, 7]])
+    answers = []
+    for mesh in (None, ShardMesh((CPU,) * 4)):
+        eng = engine(g, backend, slots=8, threshold=1e-7, mesh=mesh)
+        eng.drain(qs)
+        eng.apply_updates(adds=adds)
+        answers.append(eng.drain(qs))
+    assert _same_answers(*answers)
+    for r in answers[1]:
+        _oracle_band_check(eng.g, r, 8)
+
+
+def test_mesh_must_divide_the_slots():
+    g = rmat_graph(6, avg_degree=4, seed=0)
+    with pytest.raises(ValueError, match="divisible"):
+        engine(g, slots=6, mesh=ShardMesh((CPU,) * 4))
+    with pytest.raises(ValueError, match="1-D"):
+        ShardMesh(((CPU, CPU), (CPU, CPU)))

@@ -12,7 +12,8 @@ on a ``VirtualClock``) runs on both packages, the reference's engine on
 its ``jax`` backend and the port's on its ``torch`` backend, and must
 give the same statuses, counters and cache keys; answers re-solved after
 an update must match the float64 oracle of the updated graph.  The two
-mesh tests have no counterpart: ``mesh=`` is not ported.
+mesh tests of the engine are in tests/test_torch_serving.py; here the
+runtime reports the mesh's size and ``serve --mesh-shards`` runs.
 """
 import jax  # noqa: F401
 import numpy as np
@@ -429,6 +430,16 @@ def _stats(pkg):
             s["timers"]["solve"]["count"] > 0)
 
 
+def test_runtime_stats_report_the_mesh_size():
+    from repro_torch.core import ShardMesh
+
+    eng = PPREngine(port(g64()), slots=4, threshold=1e-7, device=CPU,
+                    mesh=ShardMesh((torch.device(CPU),) * 4))
+    rt = ServingRuntime(eng)
+    assert len(rt.serve(make_query_stream(64, 4, seed=0))) == 4
+    assert rt.stats()["mesh_shards"] == 4
+
+
 def test_runtime_stats_shape():
     keys, counters, shards, _, solved = both(_stats)
     for key in ("backend", "slots", "mesh_shards", "queue_depth_limit",
@@ -474,8 +485,9 @@ def test_serve_with_updates_answers_each_graph_version(backend, qps, capsys):
 
 
 def test_serve_mesh_and_default_device():
-    with pytest.raises(NotImplementedError, match="distributed"):
-        pagerank_run.run(["serve", "--mesh-shards", "2"])
+    rep = pagerank_run.run(["serve", "--mesh-shards", "1", "--device", "cpu",
+                            "--scale-down", "2048", "--queries", "4"])
+    assert rep["stats"]["mesh_shards"] == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             pagerank_run.run(["serve", "--scale-down", "2048"])

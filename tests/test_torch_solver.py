@@ -55,6 +55,8 @@ SLICE_7_VARIANTS = ("barrier_edge", "barrier_identical", "nosync_adaptive",
 PPR_VARIANTS = ("ppr_barrier", "ppr_nosync", "ppr_blocked")
 SLICE_8_VARIANTS = ("barrier_sticd", "nosync_sticd", "ppr_push",
                     "ppr_push_priority")
+DISTRIBUTED_VARIANTS = ("distributed_barrier", "distributed_stale",
+                        "distributed_topk")
 
 
 @pytest.fixture(autouse=True)
@@ -171,14 +173,18 @@ def test_engine_state_fields_match_reference():
 def test_registry_lists_the_slice():
     names = set(list_variants())
     assert names == {"sequential", *ALL_VARIANTS, *PPR_VARIANTS,
-                     *SLICE_7_VARIANTS, *SLICE_8_VARIANTS}
-    assert len(names) == 19
+                     *SLICE_7_VARIANTS, *SLICE_8_VARIANTS,
+                     *DISTRIBUTED_VARIANTS}
+    assert len(names) == 22
     for name in names:
         v = get_variant(name)
         assert v.description and v.layout and v.backend in BACKENDS
     assert {get_variant(n).backend for n in ALL_VARIANTS[4:]} == {"cuda"}
     assert get_variant("ppr_blocked").backend == "cuda"
     assert get_variant("blocked_adaptive").backend == "cuda"
+    for name in DISTRIBUTED_VARIANTS:  # every shard's sweep is spmv_csr_acc
+        assert (get_variant(name).layout, get_variant(name).backend) == (
+            "distributed", "cuda")
 
 
 def test_registry_does_not_touch_the_reference():
@@ -190,11 +196,10 @@ def test_registry_does_not_touch_the_reference():
                     "pallas_adaptive", "ppr_pallas"}
     ref_names, names = set(ref_list_variants()), set(list_variants())
     assert not cuda_names & ref_names
-    # 19 of the reference's 22: the kernel variants under their port names,
-    # every other name shared; only the distributed solvers are left
-    assert names - cuda_names == ref_names - pallas_names - {
-        "distributed_barrier", "distributed_stale", "distributed_topk"}
-    assert len(ref_names) == 22
+    # all 22 of the reference's: the kernel variants under their port
+    # names, every other name shared, none left unported
+    assert names - cuda_names == ref_names - pallas_names
+    assert len(ref_names) == 22 == len(names)
 
 
 @pytest.mark.parametrize("bad", [dict(backend="jax"), dict(description=""),
@@ -253,8 +258,18 @@ def test_launcher_runs_the_solve_path_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [["--store=/tmp/x"],
-                                  ["serve", "--mesh-shards", "2"], ["build"],
-                                  ["--store", "/tmp/x"], ["--ckpt=/tmp/x"]])
+                                  ["--ckpt", "/tmp/x", "--device", "cpu"],
+                                  ["build"], ["--store", "/tmp/x"],
+                                  ["--ckpt=/tmp/x"]])
 def test_launcher_rejects_later_slices(argv):
     with pytest.raises(NotImplementedError, match="not ported"):
         pagerank_run.main(argv)
+
+
+def test_launcher_serves_on_a_mesh(capsys):
+    # serve --mesh-shards runs since the distributed slice; the CPU is one
+    # device, so the mesh has one shard
+    rep = pagerank_run.run(["serve", "--mesh-shards", "2", "--device", "cpu",
+                            "--scale-down", "2048", "--queries", "4"])
+    assert "mesh_shards=1" in capsys.readouterr().out
+    assert rep["stats"]["mesh_shards"] == 1 and len(rep["responses"]) == 4

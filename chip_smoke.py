@@ -118,6 +118,29 @@ Phases, one or more lines each; any failure exits non-zero:
                queries: rounds, pushes, the L1 certificate, wall; every
                estimate at or below the oracle, every top-10 the oracle's
                up to the certificate;
+    store   — the socLiveJournal1 surrogate at full size (n 4,847,571,
+               m 68,993,773) made by make_dataset into a dataset cache
+               under build/ (generate and save timed apart), then asked
+               for again: a memmap-backed, CRC-verified cache hit equal to
+               the build array for array; from the memmap, blocked_nosync
+               (gs_pass) and blocked (spmv_csr_acc) with dangling
+               redistribution, the first 2 launches of each warm-up held
+               against the plain versions, launches = passes, L1 to the
+               float64 oracle ≤ 1e-4; both kernels timed at that size
+               beside their bytes bounds (and torch.sparse for
+               spmv_csr_acc); full webStanford saved BFS-ordered with its
+               perm and solved by the launcher with --store and --ckpt:
+               ranks in original ids, within 1e-4 of a resident solve's,
+               the checkpoint's p and ranks the report's; the stores are
+               deleted at the end;
+    faults  — the Wait-Free simulator (Alg 6) on full webStanford at
+               p = 8, threshold 1e-8: barrier, nosync and waitfree with no
+               fault, worker 0 asleep 2, 5, 10 every iteration (Fig 8), 1,
+               2, 3 workers failed at iteration 2 (Fig 9); every card run
+               equal to the same run on the CPU (iterations, work, time;
+               ranks within 1e-12), every converged run within the
+               threshold's certificate of the leaky float64 oracle, the
+               reference tests' claims, and the Fig 8/9 table;
 15. flash   — flash_attention against its plain version over the
                reference's test matrix (f32/bf16 x 3 head layouts x
                causal / window 64 / full, s 256, dh 64), ragged and
@@ -282,6 +305,24 @@ DYN_L1 = 1e-6
 # the global float64 oracle of an updated graph stops when a step moves
 # the vector by at most this in L1; it is then within d / (1 - d) of it
 GLOBAL_ORACLE_STEP = 1e-13
+# the store phase: socLiveJournal1 at full size (n 4,847,571, m 68,993,773)
+# in a dataset cache under the checkout's git-ignored build/, deleted at the
+# phase's end; the first launches of each warm-up held to the plain versions
+STORE_DATASET = "socLiveJournal1"
+STORE_DIR = os.path.join(ROOT, "build", "smoke_store")
+STORE_CHECKED = 2
+# the faults phase: benchmarks/bench_faults.py's setup (p = 8, threshold
+# 1e-8, worker 0 asleep 2, 5, 10 every iteration; 1, 2, 3 workers failed at
+# iteration 2, barrier cut at 60 rounds) on full webStanford; card and CPU
+# runs of the float64 simulator differ only in the last bits of the ranks
+# (CUDA's segment sums add by a tree, the CPU's in edge order)
+FAULT_P = 8
+FAULT_THRESHOLD = 1e-8
+FAULT_SLEEPS = (2.0, 5.0, 10.0)
+FAULT_FAILED = (1, 2, 3)
+FAULT_FAIL_AT = 2
+FAULT_BARRIER_MAX_ITER = 60
+FAULT_CPU_L1 = 1e-12
 # serve with live updates: the launcher's arguments (no dangling
 # redistribution: updates keep the leaky convention)
 SERVE_UPDATES, SERVE_BATCHES, SERVE_SEED = 500, 2, 0
@@ -334,12 +375,18 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
 
 def device_ms(fn, reps: int, warmup: int = 3, tries: int = 3) -> tuple[float, str]:
     """Device time of one call of ``fn`` and how it was taken: the CUDA
-    kernels and copies in a profiler trace of ``reps`` calls, over
-    ``reps`` (``"trace"``).  Unlike :func:`time_ms` it leaves out the
-    host's time to make the call, which a kernel of tens of microseconds
-    does not hide.  A trace now and then holds no device events; after
-    ``tries`` such traces it falls back to :func:`time_ms` (``"events"``)
-    and says so."""
+    kernels and copies in a profiler trace of ``reps`` calls (``"trace"``).
+    Unlike :func:`time_ms` it leaves out the host's time to make the call,
+    which a kernel of tens of microseconds does not hide.
+
+    A trace may hold fewer events of a kernel than the calls made (on the
+    H100, often one call's or more; a sum over reps then understates the
+    time), so each kernel counts as its mean over the events held, times
+    its launches a call, ``ceil(events / reps)`` (exact while a trace
+    loses less than one call's share of a kernel's events).  A trace now
+    and then holds no device events;
+    after ``tries`` such traces it falls back to :func:`time_ms`
+    (``"events"``) and says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -352,11 +399,35 @@ def device_ms(fn, reps: int, warmup: int = 3, tries: int = 3) -> tuple[float, st
                 fn()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        if rows:
-            return sum(e.self_device_time_total for e in rows) / 1e3 / reps, "trace"
+        if not rows:
+            continue
+        short = [f"{e.key[:40]} {e.count}" for e in rows if e.count % reps]
+        if short:
+            print(f"device_ms: a trace of {reps} calls held {', '.join(short)} "
+                  f"events: those kernels count as the mean of the held ones",
+                  flush=True)
+        us = sum(e.self_device_time_total / e.count * -(-e.count // reps) for e in rows)
+        return us / 1e3, "trace"
     print(f"device_ms: {tries} traces held no device time; CUDA events instead",
           flush=True)
     return time_ms(fn, reps), "events"
+
+
+def batch_ms(fn, reps: int, warmup: int = 3) -> float:
+    """One call's share of the time between CUDA events around ``reps``
+    calls made back to back: the device's time per call wherever the
+    device, not the host's wrapper, is the slower of the two.  A check on
+    :func:`device_ms` that loses no event."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound_ms(nbytes: float) -> float:
@@ -726,14 +797,14 @@ def solve_phase(g):
 
 
 @contextlib.contextmanager
-def checked_passes(tag):
-    """Hold every gs_pass call of the blocked path against gs_pass_ref on
-    the same operands while a solve runs: within the entry bound, frozen
-    lanes bit for bit the input.  It wraps the name the sweep calls
-    (``repro_torch.kernels.spmv.ops.gs_pass``), the one place where the
-    masks the adaptive schedule hands the kernel can be seen; the real
-    wrapper still launches and counts.  Yields the list of the blocks each
-    pass froze and the worst entry-wise error."""
+def checked_passes(tag, calls=None):
+    """Hold every gs_pass call of the blocked path (or its first ``calls``)
+    against gs_pass_ref on the same operands while a solve runs: within the
+    entry bound, frozen lanes bit for bit the input.  It wraps the name the
+    sweep calls (``repro_torch.kernels.spmv.ops.gs_pass``), the one place
+    where the masks the adaptive schedule hands the kernel can be seen;
+    the real wrapper still launches and counts.  Yields the list of the
+    blocks each held pass froze and the worst entry-wise error."""
     from repro_torch.kernels.spmv import gs_pass_ref, ops
 
     real = ops.gs_pass
@@ -741,6 +812,8 @@ def checked_passes(tag):
 
     def checked(pr, *args):
         out = real(pr, *args)
+        if calls is not None and len(seen["frozen"]) >= calls:
+            return out
         frozen = args[-1]  # None where no schedule freezes lanes
         name = f"gs_pass ({tag}, pass {len(seen['frozen']) + 1})"
         _, _, ent = check_agreement(name, out, gs_pass_ref(pr, *args))
@@ -758,11 +831,11 @@ def checked_passes(tag):
 
 
 @contextlib.contextmanager
-def checked_spmv(tag):
-    """Hold every spmv_csr_acc call of the blocked path against
-    spmv_csr_acc_ref on the same operands while a solve runs, within the
-    entry bound (the wrapper still launches and counts).  Yields the
-    number of calls held and the worst entry-wise error."""
+def checked_spmv(tag, calls=None):
+    """Hold every spmv_csr_acc call of the blocked path (or its first
+    ``calls``) against spmv_csr_acc_ref on the same operands while a solve
+    runs, within the entry bound (the wrapper still launches and counts).
+    Yields the number of calls held and the worst entry-wise error."""
     from repro_torch.kernels.spmv import ops, spmv_csr_acc_ref
 
     real = ops.spmv_csr_acc
@@ -770,6 +843,8 @@ def checked_spmv(tag):
 
     def checked(contrib, *args):
         out = real(contrib, *args)
+        if calls is not None and seen["calls"] >= calls:
+            return out
         seen["calls"] += 1
         _, _, ent = check_agreement(f"spmv_csr_acc ({tag}, call {seen['calls']})",
                                     out, spmv_csr_acc_ref(contrib, *args))
@@ -1162,7 +1237,10 @@ def global_oracle(g, pr0=None, d=0.85, max_iter=5000, dangling=False):
     import scipy.sparse as sp
 
     inv = np.where(g.out_degree > 0, 1.0 / np.maximum(g.out_degree, 1), 0.0)
-    a = sp.csr_matrix((inv[g.src], (g.dst, g.src)), shape=(g.n, g.n))
+    # the dst-sorted edge list is the in-CSR already: rows dst, columns src
+    # (a parallel edge is two entries, which the product adds)
+    a = sp.csr_matrix((inv[g.src], np.asarray(g.src), np.asarray(g.in_ptr)),
+                      shape=(g.n, g.n))
     base = (1.0 - d) / g.n
     sink = g.out_degree == 0
     pr = np.full(g.n, 1.0 / g.n) if pr0 is None else np.array(pr0, np.float64)
@@ -1810,6 +1888,333 @@ def push_phase(g, oracle, seed_sets):
         max((s for s in seed_sets if s), key=lambda s: pushes[s]))
 
 
+@contextlib.contextmanager
+def timed_calls(owner, name: str):
+    """Time every call of ``owner.name`` while the block runs (the real
+    function still runs).  Yields ``{"calls": n, "s": seconds}``."""
+    real = getattr(owner, name)
+    seen = {"calls": 0, "s": 0.0}
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            seen["calls"] += 1
+            seen["s"] += time.perf_counter() - t0
+
+    setattr(owner, name, timed)
+    try:
+        yield seen
+    finally:
+        setattr(owner, name, real)
+
+
+def store_solves(g, dev, oracle):
+    """``blocked_nosync`` (gs_pass) and ``blocked`` (spmv_csr_acc) with
+    dangling redistribution on the memmap-backed ``g``, from one blocked
+    build (the two share the layout).  Each solve runs twice: a warm-up
+    whose first STORE_CHECKED launches are held against the plain
+    versions, then a counted solve (launches = passes) held to the float64
+    ``oracle`` (vector, L1 error bound) within L1_DEFAULT.  Returns the
+    bundle and, per kernel, its launches."""
+    from repro_torch.core.pagerank import l1_norm
+    from repro_torch.core.solver import build_variant, get_variant
+    from repro_torch.kernels.spmv import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    _, bg = build_variant("blocked_nosync", g, device=dev, block=256)
+    torch.cuda.synchronize()
+    print(f"store bundle: BlockedGraph from the memmap in "
+          f"{time.perf_counter() - t0:.2f}s: {bg.n_blocks} blocks of {bg.block}, "
+          f"largest block {int(np.diff(np.asarray(g.in_ptr)[::256]).max())} "
+          f"in-edges (the last block aside)", flush=True)
+    ref, ref_err = oracle
+    launches = {}
+    for variant, kernel, holder in (("blocked_nosync", "gs_pass", checked_passes),
+                                    ("blocked", "spmv_csr_acc", checked_spmv)):
+        v = get_variant(variant)
+        kw = dict(threshold=SOLVE_THRESHOLD, handle_dangling=True)
+        with holder(f"{STORE_DATASET}, {variant}", calls=STORE_CHECKED) as seen:
+            v.run(bg, **kw)
+        held = len(seen["frozen"]) if kernel == "gs_pass" else seen["calls"]
+        check(held == STORE_CHECKED, f"store {variant}: {held} launches held, "
+              f"expected {STORE_CHECKED}")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = v.run(bg, **kw)
+        pr = r.pr.reshape(-1)[:g.n].double().cpu().numpy()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        for k, n in counts.items():
+            want = r.iterations if k == kernel else 0
+            check(n == want, f"store {variant}: {k} launched {n} times, "
+                  f"expected {want} (its passes)")
+        l1 = l1_norm(pr, ref)
+        check(l1 <= L1_DEFAULT, f"store {variant}: L1 {l1:.3e} to the float64 "
+              f"oracle > {L1_DEFAULT:g}")
+        launches[kernel] = r.iterations
+        print(f"store solve {variant} --handle-dangling ({STORE_DATASET}, memmap): "
+              f"passes={r.iterations} err={float(r.err):.3e} wall_s={wall:.4f} "
+              f"ms_a_pass={1e3 * wall / r.iterations:.3f} l1={l1:.3e} (bound "
+              f"{L1_DEFAULT:g}; oracle error <= {ref_err:.1e}) launches={counts}; "
+              f"the warm-up's first {STORE_CHECKED} launches within the entry "
+              f"bound of the plain version (worst {seen['entry_rel']:.3e})",
+              flush=True)
+    return bg, launches
+
+
+def store_kernel_times(g, bg, dev):
+    """gs_pass and spmv_csr_acc at the store's size by device time in a
+    trace, beside their bytes bounds, their plain versions (CUDA events)
+    and, for spmv_csr_acc, the library call (torch.sparse CSR mv).
+    gs_pass as blocked_nosync runs it: no frozen lanes."""
+    from repro_torch.kernels.spmv import gs_pass, gs_pass_ref, spmv_csr_acc, spmv_csr_acc_ref
+
+    rng = np.random.default_rng(0)
+    pr, _, params = gs_inputs(g, bg, rng)
+    n_pad, m = bg.n_blocks * bg.block, g.m
+    csr_bytes = 4 * (n_pad + 1) + 4 * m
+    gs_args = (pr, bg.inv_out, bg.vmask, params, bg.in_ptr, bg.src, None, None, None)
+
+    def gs():
+        return gs_pass(*gs_args)
+
+    ms, by = device_ms(gs, 5, warmup=1)
+    stats = {"gs_pass": dict(
+        n=g.n, m=m, ms=ms, timed_by=by, batch_ms=batch_ms(gs, 5, warmup=1),
+        plain_ms=time_ms(lambda: gs_pass_ref(*gs_args), 1, warmup=0),
+        bound_ms=bound_ms(4 * n_pad * 4 + 12 + csr_bytes), walk_steps=bg.n_blocks)}
+    contrib = pr * bg.inv_out
+    spmv_args = (contrib, bg.in_ptr, bg.src, None)
+
+    def spmv():
+        return spmv_csr_acc(*spmv_args)
+
+    ms, by = device_ms(spmv, 20)
+    csr = torch.sparse_csr_tensor(bg.in_ptr, bg.src, torch.ones(m, device=dev),
+                                  (n_pad, n_pad))
+    flat = contrib.reshape(-1)
+    lib_ms, lib_by = device_ms(lambda: torch.mv(csr, flat), 20)
+    stats["spmv_csr_acc"] = dict(
+        n=g.n, m=m, ms=ms, timed_by=by, batch_ms=batch_ms(spmv, 100),
+        plain_ms=time_ms(lambda: spmv_csr_acc_ref(*spmv_args), 5),
+        bound_ms=bound_ms(4 * n_pad + csr_bytes + 4 * n_pad),
+        library_ms=lib_ms, library_by=lib_by)
+    for name, s in stats.items():
+        lib = (f" library_ms={s['library_ms']:.4f} (torch.sparse CSR mv, by "
+               f"{s['library_by']})" if "library_ms" in s else
+               f" ({s['walk_steps']} dependent block steps a pass)")
+        print(f"store kernel {name} at n={s['n']} m={s['m']}: ms={s['ms']:.4f} "
+              f"(device, by {s['timed_by']}; {s['batch_ms']:.4f} a call by events "
+              f"around calls back to back) plain_ms={s['plain_ms']:.4f} (events) "
+              f"bound_ms={s['bound_ms']:.4f} (bytes){lib}", flush=True)
+        check(s["ms"] >= s["bound_ms"] and s["batch_ms"] >= s["bound_ms"],
+              f"store kernel {name}: {s['ms']:.4f} / {s['batch_ms']:.4f} ms below "
+              f"its bytes bound {s['bound_ms']:.4f}: a time lost device work")
+    return stats
+
+
+def store_phase(g_ws, dev):
+    """The graph store at full size.  socLiveJournal1 is made in RAM by
+    ``make_dataset`` with a cache directory (the generate and save times
+    printed apart), then asked for again: that call must hit the cache,
+    memmap-backed, CRC-verified, array for array the first call's graph.
+    From the memmap, blocked_nosync (gs_pass) and blocked (spmv_csr_acc)
+    with dangling redistribution, each held to the float64 oracle, and both
+    kernels timed at that size.  Then full webStanford (``g_ws``) is saved
+    BFS-ordered with its perm and solved by the launcher with ``--store``
+    and ``--ckpt``: ranks in original ids, equal to a resident solve's
+    within L1_DEFAULT, and the checkpoint reloads with the printed p and
+    the same ranks.  The stores are deleted at the end.  Returns the
+    kernels' stats at the store's size and their launches by path."""
+    import shutil
+
+    from repro_torch.core.pagerank import l1_norm
+    from repro_torch.core.runtime import SolverCheckpoint
+    from repro_torch.core.solver import build_variant, bundle_partitions
+    from repro_torch.graphs import (
+        GraphStore, compute_order, dataset_cache_path, make_dataset, permute_graph,
+        save_graph, store,
+    )
+    from repro_torch.kernels.spmv import launch_counts, reset_launch_counts
+    from repro_torch.launch import pagerank_run
+
+    shutil.rmtree(STORE_DIR, ignore_errors=True)
+    cache = os.path.join(STORE_DIR, "cache")
+    try:
+        t0 = time.perf_counter()
+        with timed_calls(store, "save_graph") as saved:
+            g = make_dataset(STORE_DATASET, scale_down=1, cache_dir=cache)
+        total = time.perf_counter() - t0
+        check(saved["calls"] == 1 and not g.is_memmap,
+              f"store: the first make_dataset saved {saved['calls']} stores")
+        path = dataset_cache_path(STORE_DATASET, 1, 0, cache)
+        st = GraphStore(path)
+        print(f"store make_dataset {STORE_DATASET} (scale_down 1): n={g.n} m={g.m} "
+              f"generate_s={total - saved['s']:.2f} save_s={saved['s']:.2f} "
+              f"bytes={st.nbytes():,} files={sorted(st.meta['arrays'])}", flush=True)
+        t0 = time.perf_counter()
+        with timed_calls(GraphStore, "verify") as verified:
+            h = make_dataset(STORE_DATASET, scale_down=1, cache_dir=cache)
+        reload_s = time.perf_counter() - t0
+        check(h.is_memmap, "store: the second make_dataset did not load the cache")
+        check(verified["calls"] == 1, "store: the cache hit was not CRC-verified")
+        t0 = time.perf_counter()
+        for name in ("src", "dst", "out_degree", "in_ptr"):
+            check(np.array_equal(getattr(g, name), getattr(h, name)),
+                  f"store: the cache hit's {name} differs from the build's")
+        check((h.weights, h.bias) == (None, None), "store: the hit grew weights")
+        print(f"store cache hit: memmap-backed, CRC-verified in "
+              f"{verified['s']:.2f}s (reload_s={reload_s:.2f}), every array equal "
+              f"to the build's (compared in {time.perf_counter() - t0:.2f}s)",
+              flush=True)
+        del g
+        t0 = time.perf_counter()
+        oracle = global_oracle(h, dangling=True)
+        print(f"store oracle: scipy float64, {oracle[2]} iterations to an L1 step "
+              f"<= {GLOBAL_ORACLE_STEP:g} (L1 error <= {oracle[1]:.1e}), "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+        bg, solved = store_solves(h, dev, oracle[:2])
+        stats = store_kernel_times(h, bg, dev)
+        for kernel, n in solved.items():
+            stats[kernel]["launches"] = n
+        del bg, h, oracle
+        torch.cuda.empty_cache()
+
+        # webStanford BFS-ordered, through the launcher's --store and --ckpt
+        perm = compute_order(g_ws, "bfs")
+        ws_path = os.path.join(STORE_DIR, "webStanford_bfs")
+        save_graph(ws_path, permute_graph(g_ws, perm), perm=perm, order="bfs")
+        ckpt = os.path.join(STORE_DIR, "pr")
+        reset_launch_counts()
+        rep = pagerank_run.run(["--store", ws_path, "--variant", "blocked_nosync",
+                                "--handle-dangling", "--threshold", str(SOLVE_THRESHOLD),
+                                "--ckpt", ckpt])
+        launched = launch_counts()["gs_pass"]
+        check(launched == rep["iterations"],
+              f"store --store: gs_pass launched {launched} times, "
+              f"{rep['iterations']} passes")
+        check(rep["l1"] <= L1_DEFAULT, f"store --store: L1 {rep['l1']:.3e} > {L1_DEFAULT:g}")
+        v, bundle = build_variant("blocked_nosync", g_ws, device=dev)
+        resident = v.run(bundle, threshold=SOLVE_THRESHOLD, handle_dangling=True)
+        res_pr = resident.pr.reshape(-1)[:g_ws.n].double().cpu().numpy()
+        l1_res = l1_norm(rep["pr"], res_pr)
+        check(l1_res <= L1_DEFAULT, f"store --store: ranks {l1_res:.3e} in L1 from "
+              f"the resident solve's (bound {L1_DEFAULT:g}): not in original ids?")
+        ck = SolverCheckpoint.load(rep["ckpt"])
+        check(ck.p == rep["ckpt_p"] == bundle_partitions(bundle) == 1,
+              f"store --ckpt: checkpoint p={ck.p}, printed {rep['ckpt_p']}")
+        check((ck.n, ck.round) == (g_ws.n, rep["iterations"])
+              and np.array_equal(ck.pr, rep["pr"]),
+              "store --ckpt: the checkpoint is not the reported ranks")
+        print(f"store --store --ckpt (webStanford, BFS order, perm stored): "
+              f"passes={rep['iterations']} launches={launched} l1={rep['l1']:.3e} "
+              f"(original ids); L1 to the resident solve {l1_res:.3e} "
+              f"({resident.iterations} passes; bound {L1_DEFAULT:g}); top5 "
+              f"{rep['top5']}; checkpoint n={ck.n} p={ck.p} round={ck.round}, "
+              f"ranks equal the report's", flush=True)
+        by_path = {"gs_pass": {f"store blocked_nosync ({STORE_DATASET})": solved["gs_pass"],
+                               "store --store --ckpt (webStanford BFS)": launched},
+                   "spmv_csr_acc": {f"store blocked ({STORE_DATASET})":
+                                    solved["spmv_csr_acc"]}}
+        return stats, by_path
+    finally:
+        shutil.rmtree(STORE_DIR, ignore_errors=True)
+
+
+def faults_phase(g, dev):
+    """The Wait-Free simulator (Alg 6) at the reference's
+    benchmarks/bench_faults.py setup, full size: full webStanford,
+    PartitionedGraph at p = FAULT_P, threshold FAULT_THRESHOLD; the three
+    disciplines with no fault, with worker 0 asleep every iteration (Fig
+    8) and with 1, 2, 3 workers failed (Fig 9).  Every card run is held
+    against the same call on the CPU (iterations, work and modelled time
+    equal, ranks within FAULT_CPU_L1), every converged run against the
+    leaky float64 oracle within what the threshold certifies, and the
+    reference tests' claims are checked.  Prints the Fig 8/9 table."""
+    from repro_torch.core.pagerank import PartitionedGraph, l1_norm
+    from repro_torch.core.runtime import FaultPlan, simulate
+
+    d = 0.85
+    pgs = {"card": PartitionedGraph.from_graph(g, p=FAULT_P, device=dev),
+           "cpu": PartitionedGraph.from_graph(g, p=FAULT_P, device="cpu")}
+    oracle, oracle_err, _ = global_oracle(g)
+    bound = d / (1 - d) * g.n * FAULT_THRESHOLD
+    plans = {"none": {}}
+    for s in FAULT_SLEEPS:
+        plans[f"sleep {s:g}"] = {"sleeps": {(0, it): s for it in range(1, 1001)}}
+    for k in FAULT_FAILED:
+        plans[f"{k} failed"] = {"failures": {w: FAULT_FAIL_AT for w in range(k)}}
+    runs = {}
+    walls = {"card": 0.0, "cpu": 0.0}
+    for plan_name, plan in plans.items():
+        for disc in ("barrier", "nosync", "waitfree"):
+            kw = dict(threshold=FAULT_THRESHOLD)
+            if disc == "barrier" and "failures" in plan:
+                kw["max_iter"] = FAULT_BARRIER_MAX_ITER  # a failure holds the barrier
+            res = {}
+            for where, pg in pgs.items():
+                t0 = time.perf_counter()
+                res[where] = simulate(pg, disc, FaultPlan(**plan), **kw)
+                walls[where] += time.perf_counter() - t0
+            a, b = res["card"], res["cpu"]
+            l1_cpu = l1_norm(a.pr, b.pr)
+            check((a.iterations, a.work_done, a.sim_time)
+                  == (b.iterations, b.work_done, b.sim_time),
+                  f"faults {disc} {plan_name}: card {a.iterations} iterations, "
+                  f"time {a.sim_time}, work {a.work_done}; CPU {b.iterations}, "
+                  f"{b.sim_time}, {b.work_done}")
+            check(l1_cpu <= FAULT_CPU_L1, f"faults {disc} {plan_name}: card ranks "
+                  f"{l1_cpu:.3e} in L1 from the CPU's (bound {FAULT_CPU_L1:g})")
+            converged = a.iterations < kw.get("max_iter", 1000)
+            l1 = l1_norm(a.pr, oracle)
+            if converged:
+                check(l1 <= bound + oracle_err, f"faults {disc} {plan_name}: L1 "
+                      f"{l1:.3e} to the oracle > {bound:.3e}")
+            runs[(plan_name, disc)] = (a, converged, l1)
+            print(f"faults {disc} {plan_name}: iterations={a.iterations} "
+                  f"converged={converged} sim_time={a.sim_time:g} work="
+                  f"{[a.work_done[w] for w in range(FAULT_P)]} l1={l1:.3e}"
+                  f"{f' (bound {bound:.3e})' if converged else ''} card-CPU "
+                  f"l1={l1_cpu:.1e}", flush=True)
+
+    # the reference tests' claims (tests/test_distributed.py)
+    times = [runs[(p, "barrier")][0].sim_time for p in plans if p.startswith(("none", "sleep"))]
+    check(all(x < y for x, y in zip(times, times[1:])),
+          f"faults: barrier time does not grow with the sleep: {times}")
+    for s in FAULT_SLEEPS:
+        w, n, b = (runs[(f"sleep {s:g}", x)][0].sim_time
+                   for x in ("waitfree", "nosync", "barrier"))
+        check(w < b and n <= b, f"faults: at sleep {s:g} waitfree {w} or nosync "
+              f"{n} not below barrier {b}")
+    for k in FAULT_FAILED:
+        name = f"{k} failed"
+        check(runs[(name, "waitfree")][1], f"faults: waitfree did not finish, {name}")
+        check(not runs[(name, "barrier")][1] and not runs[(name, "nosync")][1],
+              f"faults: barrier or nosync finished with {name}")
+        r = runs[(name, "waitfree")][0]
+        check(sum(r.work_done.values()) == r.iterations * FAULT_P,
+              f"faults: waitfree with {name} left partitions unswept")
+        check(all(r.work_done[w] <= FAULT_FAIL_AT - 1 for w in range(k)),
+              f"faults: a failed worker swept after its failure ({name})")
+
+    print(f"faults: Fig 8/9 table, full webStanford, p={FAULT_P}, threshold "
+          f"{FAULT_THRESHOLD:g}; sim_time (iterations), '-' where the run did not "
+          f"converge", flush=True)
+    print(f"faults: {'plan':10s} {'barrier':>14s} {'nosync':>14s} {'waitfree':>14s}")
+    for plan_name in plans:
+        cells = []
+        for disc in ("barrier", "nosync", "waitfree"):
+            a, converged, _ = runs[(plan_name, disc)]
+            cells.append(f"{a.sim_time:g} ({a.iterations})" if converged
+                         else f"- ({a.iterations})")
+        print(f"faults: {plan_name:10s} " + " ".join(f"{c:>14s}" for c in cells))
+    print(f"faults: simulate walls, card {walls['card']:.1f}s, CPU "
+          f"{walls['cpu']:.1f}s, over {len(runs)} runs each", flush=True)
+
+
 def attention_pairs(sq, sk, causal, window) -> int:
     """Live (query, key) pairs of one head: the work this input needs."""
     row = np.arange(sq)
@@ -2293,7 +2698,14 @@ def main() -> int:
         # engine's stream: each push solve is host numpy and takes seconds
         # at full size
         push_phase(g, oracle, sorted({_key(q.seeds) for q in queries[:PPR_ROWS]}))
-    del g, gw, oracle
+    del gw, oracle
+    with phase_wall("store"):
+        store_stats, paths = store_phase(g, dev)
+        for kernel, by_path in paths.items():
+            launches[kernel].update(by_path)
+    with phase_wall("faults"):
+        faults_phase(g, dev)
+    del g
     with phase_wall("flash"):
         flash = flash_kernel_phase(dev)
     with phase_wall("prefill and decode"):
@@ -2321,6 +2733,8 @@ def main() -> int:
             **({"k": s["k"], "D": s["D"]} if name == "gs_pass" else {}),
             # one partition of the p = 4 distributed solves (spmv_csr_rows)
             **({"partition_p4": part} if name == "spmv_csr_acc" else {}),
+            # the store phase's full-size socLiveJournal1, from its memmap
+            **({STORE_DATASET: store_stats[name]} if name in store_stats else {}),
         })
     f = flash[(torch.bfloat16, None)]  # prefill's shape and dtype, causal
     kernels.append({

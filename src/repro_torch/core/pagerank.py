@@ -52,7 +52,7 @@ from repro_torch.core.solver import (
     register_variant,
     solve,
 )
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.graphs.csr import Graph, inv_out_and_dangling
 
 __all__ = [
@@ -75,12 +75,8 @@ __all__ = [
 ]
 
 
-def _tensor(x, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-
-
 def _opt_tensor(x, dtype, device):
-    return None if x is None else _tensor(x, dtype, device)
+    return None if x is None else to_device(x, dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -112,10 +108,10 @@ class DeviceGraph:
         inv, dang = inv_out_and_dangling(g.out_degree)
         return cls(
             n=g.n,
-            src=_tensor(g.src, torch.int64, dev),
-            in_ptr=_tensor(g.in_ptr, torch.int64, dev),
-            inv_out=_tensor(inv, dtype, dev),
-            dangling=_tensor(dang, dtype, dev),
+            src=to_device(g.src, torch.int64, dev),
+            in_ptr=to_device(g.in_ptr, torch.int64, dev),
+            inv_out=to_device(inv, dtype, dev),
+            dangling=to_device(dang, dtype, dev),
             weights=_opt_tensor(g.weights, dtype, dev),
             bias=_opt_tensor(g.bias, dtype, dev),
         )
@@ -149,11 +145,11 @@ class EdgeCentricGraph:
         return cls(
             n=g.n,
             m=g.m,
-            src_by_src=_tensor(src_ids, torch.int64, dev),
-            edge_slot=_tensor(edge_slot, torch.int64, dev),
-            in_ptr=_tensor(g.in_ptr, torch.int64, dev),
-            inv_out=_tensor(inv, dtype, dev),
-            dangling=_tensor(dang, dtype, dev),
+            src_by_src=to_device(src_ids, torch.int64, dev),
+            edge_slot=to_device(edge_slot, torch.int64, dev),
+            in_ptr=to_device(g.in_ptr, torch.int64, dev),
+            inv_out=to_device(inv, dtype, dev),
+            dangling=to_device(dang, dtype, dev),
             weights=_opt_tensor(g.weights, dtype, dev),
             bias=_opt_tensor(g.bias, dtype, dev),
         )
@@ -272,17 +268,17 @@ class PartitionedGraph:
             p=p,
             vp=vp,
             n_pad=n_pad,
-            src_pad=_tensor(src_pad, torch.int64, dev),
-            seg_ptr=_tensor(seg_ptr, torch.int64, dev),
-            emask=_tensor(emask, dtype, dev),
-            inv_out=_tensor(inv, dtype, dev),
-            dangling=_tensor(dang, dtype, dev),
+            src_pad=to_device(src_pad, torch.int64, dev),
+            seg_ptr=to_device(seg_ptr, torch.int64, dev),
+            emask=to_device(emask, dtype, dev),
+            inv_out=to_device(inv, dtype, dev),
+            dangling=to_device(dang, dtype, dev),
             w_pad=_opt_tensor(w_pad, dtype, dev),
             bias_pad=_opt_tensor(bias_pad, dtype, dev),
             # p is thread-scale, so the (n_pad, p) certificate costs about
             # one rank vector a partition: always carried, as in the
             # reference, so every partitioned bundle runs nosync_adaptive
-            gain=_tensor(vertex_gain_matrix(g, vp, p, n_pad), dtype, dev),
+            gain=to_device(vertex_gain_matrix(g, vp, p, n_pad), dtype, dev),
         )
 
 
@@ -349,7 +345,7 @@ def _start(pr0, n: int, size: int, dtype, device):
     padded = np.zeros(size, dtype=np.float64)
     vec = np.asarray(pr0, dtype=np.float64)
     padded[:vec.shape[0]] = vec
-    return _tensor(padded, dtype, device)
+    return to_device(padded, dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -581,13 +577,13 @@ class IdenticalNodePlan:
         return cls(
             n=g.n,
             n_classes=n_classes,
-            cls_of=_tensor(cls_of, torch.int64, dev),
-            src=_tensor(g.src[keep], torch.int64, dev),
-            cls_ptr=_tensor(cls_ptr, torch.int64, dev),
-            inv_out=_tensor(inv, dtype, dev),
-            dangling=_tensor(dang, dtype, dev),
+            cls_of=to_device(cls_of, torch.int64, dev),
+            src=to_device(g.src[keep], torch.int64, dev),
+            cls_ptr=to_device(cls_ptr, torch.int64, dev),
+            inv_out=to_device(inv, dtype, dev),
+            dangling=to_device(dang, dtype, dev),
             weights=(None if g.weights is None
-                     else _tensor(g.weights[keep], dtype, dev)),
+                     else to_device(g.weights[keep], dtype, dev)),
             bias=_opt_tensor(g.bias, dtype, dev),
         )
 

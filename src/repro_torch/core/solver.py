@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -507,8 +508,16 @@ def build_variant(name: str, g, *, d: float = DEFAULT_DAMPING,
     """Validate ``opts`` and build ``name``'s bundle from host graph ``g``
     on ``opts["device"]`` (default ``cuda``); returns ``(variant, bundle)``.
 
+    ``g`` may also be the path (``str`` / ``os.PathLike``) of a graph store
+    (:mod:`repro_torch.graphs.store`): it is opened memmap-backed, so the
+    build pages the edge arrays in instead of holding them resident.
+
     Unknown options raise ``TypeError`` instead of being silently dropped,
     and a ``cuda`` device where there is none raises ``RuntimeError``."""
+    if isinstance(g, (str, os.PathLike)):
+        from repro_torch.graphs.store import load_graph
+
+        g = load_graph(g, mmap=True)
     v = get_variant(name)
     unknown = set(opts) - _TRANSPORT_OPTS - set(v.options)
     if unknown:
@@ -518,6 +527,15 @@ def build_variant(name: str, g, *, d: float = DEFAULT_DAMPING,
         )
     opts["device"] = resolve_device(opts.get("device"))
     return v, v.build(g, d=d, **opts)
+
+
+def bundle_partitions(bundle) -> int:
+    """Partition count baked into a built bundle: ``p`` for the
+    partitioned and distributed layouts, 1 for the others.  Checkpoints
+    record this, not the requested ``threads``: an unpartitioned solve
+    resharded on load as if it had 56 partitions would be padded to a
+    layout it never used."""
+    return int(getattr(bundle, "p", 1))
 
 
 def warm_start_pr(g, prev_pr, *, d: float = DEFAULT_DAMPING,
@@ -565,6 +583,13 @@ class PlannedBundle:
     bundle: Any
     build_opts: dict = dataclasses.field(default_factory=dict)
     plan_opts: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def p(self) -> int:
+        # plan_run returns the full-length reconstructed vector, which was
+        # never partitioned (only the core bundle was): a checkpoint of it
+        # records an unpartitioned layout
+        return 1
 
 
 def plan_build(inner: str, **plan_opts) -> Callable:

@@ -5,7 +5,7 @@ from repro_torch.graphs.csr import (
     graph_from_arrays,
     inv_out_and_dangling,
 )
-from repro_torch.graphs.datasets import DATASETS, make_dataset
+from repro_torch.graphs.datasets import DATASETS, dataset_cache_path, make_dataset
 from repro_torch.graphs.reorder import (
     ORDERS,
     bfs_order,
@@ -17,6 +17,15 @@ from repro_torch.graphs.reorder import (
     unpermute_ranks,
 )
 from repro_torch.graphs.rmat import rmat_edges, rmat_graph
+from repro_torch.graphs.store import (
+    GraphStore,
+    StoreChecksumError,
+    StoreError,
+    StoreWriter,
+    is_store,
+    load_graph,
+    save_graph,
+)
 
 __all__ = [
     "DecompositionPlan",
@@ -25,6 +34,7 @@ __all__ = [
     "graph_from_arrays",
     "inv_out_and_dangling",
     "DATASETS",
+    "dataset_cache_path",
     "make_dataset",
     "ORDERS",
     "bfs_order",
@@ -36,4 +46,11 @@ __all__ = [
     "unpermute_ranks",
     "rmat_edges",
     "rmat_graph",
+    "GraphStore",
+    "StoreChecksumError",
+    "StoreError",
+    "StoreWriter",
+    "is_store",
+    "load_graph",
+    "save_graph",
 ]

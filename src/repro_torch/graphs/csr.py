@@ -17,7 +17,7 @@ packages solve the identical graph.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -93,16 +93,39 @@ class Graph:
     def m(self) -> int:
         return int(self.src.shape[0])
 
+    @property
+    def is_memmap(self) -> bool:
+        """True when the edge arrays are ``np.memmap`` views of a graph
+        store (:mod:`repro_torch.graphs.store`).  Informational: every
+        build reads the arrays through the array protocol, and
+        :func:`repro_torch.device.to_device` pages them in chunk by chunk."""
+        return isinstance(self.src, np.memmap)
+
     @classmethod
     def from_arrays(cls, n: int, src: np.ndarray, dst: np.ndarray,
                     out_degree: np.ndarray, in_ptr: np.ndarray,
                     weights: Optional[np.ndarray] = None,
                     bias: Optional[np.ndarray] = None) -> "Graph":
         """Trusted constructor over pre-derived arrays — no sort, no copy.
-        Callers guarantee the invariants; :func:`graph_from_arrays` checks
-        them for arrays from outside the port."""
+        The arrays may be read-only ``np.memmap`` views (the store loader's
+        entry).  Callers guarantee the invariants; :func:`graph_from_arrays`
+        checks them for arrays from outside the port."""
         return cls(n=n, src=src, dst=dst, out_degree=out_degree,
                    in_ptr=in_ptr, weights=weights, bias=bias)
+
+    def edge_chunks(
+        self, chunk_edges: int = 1 << 20,
+    ) -> Iterator[tuple[int, np.ndarray, np.ndarray, Optional[np.ndarray]]]:
+        """Yield ``(lo, src, dst, weights)`` chunks of the dst-sorted edge
+        arrays as resident ndarrays (``weights`` ``None`` when unweighted),
+        so a store writer's peak memory stays O(chunk_edges) even over a
+        memmap-backed graph."""
+        if chunk_edges < 1:
+            raise ValueError("chunk_edges must be >= 1")
+        for lo in range(0, self.m, chunk_edges):
+            hi = min(lo + chunk_edges, self.m)
+            w = None if self.weights is None else np.asarray(self.weights[lo:hi])
+            yield lo, np.asarray(self.src[lo:hi]), np.asarray(self.dst[lo:hi]), w
 
     @classmethod
     def from_edges(cls, n: int, src: np.ndarray, dst: np.ndarray,
@@ -339,6 +362,23 @@ class Graph:
             dead[newly] = True
             frontier = newly
         return dead
+
+    def partition_ranges(self, p: int, edge_balanced: bool = True) -> np.ndarray:
+        """``(p+1,)`` vertex boundaries of ``p`` contiguous partitions.
+
+        ``edge_balanced=True`` cuts where the in-edge counts are equal (the
+        paper's equal-vertex splits skew on power-law graphs);
+        ``edge_balanced=False`` gives the ``ceil(n/p)`` splits
+        :meth:`repro_torch.core.pagerank.PartitionedGraph.from_graph`
+        allocates (trailing partitions may be empty), so costs derived from
+        them describe that layout exactly."""
+        if not edge_balanced:
+            vp = -(-self.n // p) if self.n else 0
+            return np.minimum(np.arange(p + 1, dtype=np.int64) * vp, self.n)
+        targets = np.linspace(0, self.m, p + 1)
+        bounds = np.searchsorted(self.in_ptr, targets, side="left")
+        bounds[0], bounds[-1] = 0, self.n
+        return np.maximum.accumulate(bounds).astype(np.int64)
 
 
 def _concat_ranges(ptr: np.ndarray, verts: np.ndarray) -> np.ndarray:

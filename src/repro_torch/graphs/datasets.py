@@ -3,20 +3,25 @@
 A copy of the reference registry: each real-world dataset is an R-MAT
 surrogate with the same vertex/edge counts, scaled by ``scale_down``, and
 the same ``(name, scale_down, seed)`` gives the bit-identical graph in both
-packages.  The on-disk cache (``cache_dir``) comes with the port of the
-graph store; until then asking for it raises, and the reference's
-``REPRO_DATASET_CACHE`` variable is not read.
+packages.  With ``cache_dir`` (or the ``REPRO_DATASET_CACHE`` variable) a
+built graph is kept as a graph store (:mod:`repro_torch.graphs.store`) in
+the directory both packages name alike (:func:`dataset_cache_path`), and a
+later call loads it memmap-backed after checking its CRC-32s.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import shutil
 from typing import Optional
 
 import numpy as np
 
 from repro_torch.graphs.csr import Graph
 from repro_torch.graphs.rmat import rmat_edges
+
+CACHE_ENV = "REPRO_DATASET_CACHE"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,20 +61,51 @@ DATASETS = {
 }
 
 
+def dataset_cache_path(name: str, scale_down: float, seed: int,
+                       cache_dir: str) -> str:
+    """Store directory for one ``(name, scale_down, seed)`` instantiation."""
+    # repr() of the float keeps 1 and 1.5 apart without formatting clashes
+    tag = repr(float(scale_down)).replace(".", "p")
+    return os.path.join(str(cache_dir), f"{name}_sd{tag}_seed{seed}")
+
+
 def make_dataset(
     name: str,
     scale_down: float = 1.0,
     seed: int = 0,
     cache_dir: Optional[str] = None,
+    mmap: bool = True,
 ) -> Graph:
     """Instantiate a surrogate graph for a Table-1 dataset.
 
     ``scale_down`` divides both vertex and edge counts (CI uses e.g. 2048).
+
+    With ``cache_dir`` set (or the ``REPRO_DATASET_CACHE`` variable), the
+    built graph is saved as a store and a later call reloads it, with
+    ``mmap=True`` memmap-backed, so a hit holds no resident edge memory.
+    Every hit is CRC-verified; an entry that fails is deleted and rebuilt.
+    A miss returns the graph it built, resident.
     """
-    if cache_dir is not None:
-        raise NotImplementedError(
-            "make_dataset(cache_dir=...) needs the graph store, which a later "
-            "slice of the port brings; build in RAM (cache_dir=None)")
+    if cache_dir is None:
+        cache_dir = os.environ.get(CACHE_ENV) or None
+    if cache_dir is None:
+        return _build_dataset(name, scale_down, seed)
+    from repro_torch.graphs.store import StoreError, is_store, load_graph, save_graph
+
+    path = dataset_cache_path(name, scale_down, seed, cache_dir)
+    if is_store(path):
+        try:
+            return load_graph(path, mmap=mmap, verify=True)
+        except StoreError:
+            shutil.rmtree(path)  # a damaged entry: rebuilt below
+    g = _build_dataset(name, scale_down, seed)
+    os.makedirs(cache_dir, exist_ok=True)
+    save_graph(path, g, extra={"dataset": name, "scale_down": float(scale_down),
+                               "seed": seed})
+    return g
+
+
+def _build_dataset(name: str, scale_down: float, seed: int) -> Graph:
     n, m, (a, b, c) = _dataset_rmat_params(name, scale_down)
     scale = max(6, math.ceil(math.log2(n)))
     src, dst = rmat_edges(scale, m, a=a, b=b, c=c, seed=seed)

@@ -291,7 +291,6 @@ def launch_gs_pass(lib, pr: torch.Tensor, inv_out: torch.Tensor,
     launches copies of the source this way."""
     n_blocks, block = pr.shape
     dev = pr.device
-    k, d_stages = gs_pass_plan(block, weights is not None, dev, lib)
     for name, t in (("src", src), ("weights", weights)):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"gs_pass copies {name} in 16-byte units: it must "
@@ -302,15 +301,17 @@ def launch_gs_pass(lib, pr: torch.Tensor, inv_out: torch.Tensor,
     records = torch.empty((n_blocks * block + 1, 4), dtype=torch.int32, device=dev)
     vals = torch.empty(((m + 7) & ~3,), dtype=torch.float32, device=dev)  # q[src], by edge
     sync = torch.zeros(n_blocks + 1, dtype=torch.int32, device=dev)  # block flags, progress
-    err = lib.gs_pass(
-        out.data_ptr(), scaled.data_ptr(), records.data_ptr(), pr.data_ptr(),
-        inv_out.data_ptr(), vmask.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        None if frozen is None else frozen.data_ptr(),
-        params.data_ptr(), in_ptr.data_ptr(), src.data_ptr(),
-        None if weights is None else weights.data_ptr(),
-        vals.data_ptr(), sync.data_ptr(), n_blocks, block, m, k, d_stages,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the operands may sit on another card
+        k, d_stages = gs_pass_plan(block, weights is not None, dev, lib)
+        err = lib.gs_pass(
+            out.data_ptr(), scaled.data_ptr(), records.data_ptr(), pr.data_ptr(),
+            inv_out.data_ptr(), vmask.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if frozen is None else frozen.data_ptr(),
+            params.data_ptr(), in_ptr.data_ptr(), src.data_ptr(),
+            None if weights is None else weights.data_ptr(),
+            vals.data_ptr(), sync.data_ptr(), n_blocks, block, m, k, d_stages,
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "gs_pass")
     return out
 

@@ -46,7 +46,7 @@ from repro_torch.core.solver import (
     register_variant,
     solve,
 )
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.graphs.csr import Graph, inv_out_and_dangling
 from repro_torch.kernels.spmv.kernel import gs_pass, spmv_csr_acc
 
@@ -95,20 +95,22 @@ class BlockedGraph:
             bias[:g.n] = g.bias
 
         def blocks(a):
-            return torch.as_tensor(np.asarray(a, np.float32).reshape(n_blocks, block),
-                                   device=dev)
+            return to_device(np.asarray(a).reshape(n_blocks, block),
+                             torch.float32, dev)
 
+        # the edge arrays may be a store's read-only memmaps: to_device
+        # pages them in chunk by chunk and never aliases them
         return cls(
             n=g.n,
             block=block,
             n_blocks=n_blocks,
-            in_ptr=torch.as_tensor(in_ptr, device=dev),
-            src=torch.as_tensor(np.asarray(g.src, np.int32), device=dev),
+            in_ptr=to_device(in_ptr, torch.int32, dev),
+            src=to_device(g.src, torch.int32, dev),
             inv_out=blocks(inv),
             dangling=blocks(dang),
             vmask=blocks(vmask),
-            weights=(None if g.weights is None else torch.as_tensor(
-                np.asarray(g.weights, np.float32), device=dev)),
+            weights=(None if g.weights is None
+                     else to_device(g.weights, torch.float32, dev)),
             bias=None if bias is None else blocks(bias),
             gain=(torch.as_tensor(partition_gain_matrix(g, block, n_blocks),
                                   dtype=torch.float32, device=dev)

@@ -30,9 +30,21 @@ on the updated graph, stale cached answers are dropped):
 ``serve --mesh-shards N`` splits the slot batch over
 ``make_serving_mesh(N)``: ``min(N, cards)`` shards (one on the CPU).
 ``--local-sweeps`` and ``--send-fraction`` reach the ``distributed_*``
-variants.  The reference launcher's ``--store``, ``--ckpt`` and its
-``build`` subcommand come with later slices of the port; asking for them
-raises.
+variants.
+
+``--store DIR`` solves a graph store (:mod:`repro_torch.graphs.store`)
+memmap-backed instead of ``--dataset``; a reordered store solves in its
+stored order and the ranks, L1 and top-5 are reported in original vertex
+ids.  ``--ckpt PATH`` writes the ranks as a
+:class:`repro_torch.core.runtime.SolverCheckpoint` (``PATH.npz``) with the
+partition count the bundle was built with:
+
+    ... -m repro_torch.launch.pagerank_run --store build/ws \
+        --variant blocked_nosync --handle-dangling --ckpt build/ws_pr
+
+The reference launcher's ``build`` subcommand (the out-of-core build
+pipeline, whose output directories ``--store`` also takes there) is not
+ported yet; asking for it raises.
 """
 from __future__ import annotations
 
@@ -44,13 +56,17 @@ import numpy as np
 import torch
 
 from repro_torch.core.pagerank import l1_norm, pagerank_numpy
-from repro_torch.core.solver import build_variant, get_variant, list_variants, plan_stats
+from repro_torch.core.runtime import SolverCheckpoint
+from repro_torch.core.solver import (
+    build_variant,
+    bundle_partitions,
+    get_variant,
+    list_variants,
+    plan_stats,
+)
 from repro_torch.graphs import DATASETS, make_dataset
 from repro_torch.kernels.spmv import launch_counts
 from repro_torch.serving.runtime import ServingRuntime
-
-_LATER = ("build", "--store", "--ckpt")
-
 
 def _parse_seeds(spec: str) -> tuple[int, ...]:
     """``"7,42"`` → ``(7, 42)``; an empty string → the uniform teleport."""
@@ -309,15 +325,18 @@ def run(argv=None) -> dict:
     """Parse ``argv``, solve, print the report, and return it as a dict
     (``variant``, ``n``, ``m``, ``device``, ``plan``: the plan's stats or
     ``None``, ``iterations``, ``sweeps``, ``err``, ``wall_s``, ``l1``,
-    ``oracle_iterations``, ``top5``, ``launches``); ``--list`` prints the
+    ``oracle_iterations``, ``top5``, ``launches``, ``pr``: the ranks, in
+    original ids for a reordered ``--store``; with ``--ckpt`` also
+    ``ckpt``, the file written, and ``ckpt_p``); ``--list`` prints the
     registry and returns ``{}``; ``query ...`` and ``serve ...`` return
     :func:`query`'s and :func:`serve`'s reports."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    later = [a for a in argv if a.split("=")[0] in _LATER]
-    if later:
+    if argv[:1] == ["build"]:
         raise NotImplementedError(
-            f"{later[0]} is not ported yet: the port's launcher runs the "
-            f"global solve and the query and serve subcommands only")
+            "build is not ported yet: the out-of-core build pipeline "
+            "comes with slice 12 of the port; the launcher runs the global "
+            "solve (from --dataset or a --store) and the query and serve "
+            "subcommands")
     if argv[:1] == ["query"]:
         return query(argv[1:])
     if argv[:1] == ["serve"]:
@@ -340,6 +359,11 @@ def run(argv=None) -> dict:
     ap.add_argument("--handle-dangling", action="store_true",
                     help="redistribute dangling mass uniformly (all variants)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--store", default=None, metavar="DIR",
+                    help="solve this graph store memmap-backed instead of "
+                         "--dataset; ranks are reported in original vertex ids")
+    ap.add_argument("--ckpt", default=None, metavar="PATH",
+                    help="write the ranks as a SolverCheckpoint to PATH.npz")
     ap.add_argument("--list", action="store_true",
                     help="list every registered variant and exit; columns are "
                          "layout (bundle-sharing key), backend (numpy | torch "
@@ -358,8 +382,22 @@ def run(argv=None) -> dict:
                   f"{v.description}")
         return {}
 
-    g = make_dataset(args.dataset, scale_down=args.scale_down)
-    print(f"{args.dataset}: n={g.n} m={g.m} (scale_down={args.scale_down:g})")
+    perm = None
+    if args.store:
+        from repro_torch.graphs.store import GraphStore, StoreError, is_store
+
+        if not is_store(args.store):
+            raise StoreError(
+                f"{args.store} is not a graph store (no META.json); solving "
+                f"a build pipeline's directory comes with slice 12 of the "
+                f"port: pass the store directory itself")
+        store = GraphStore(args.store)
+        g = store.graph(mmap=True)
+        perm = store.perm()
+        print(f"store {store.path}: n={g.n} m={g.m} order={store.order} (memmap)")
+    else:
+        g = make_dataset(args.dataset, scale_down=args.scale_down)
+        print(f"{args.dataset}: n={g.n} m={g.m} (scale_down={args.scale_down:g})")
     opts = dict(threads=args.threads, block=args.block, tile_cap=args.tile_cap,
                 local_sweeps=args.local_sweeps,
                 send_fraction=args.send_fraction, device=args.device)
@@ -391,18 +429,32 @@ def run(argv=None) -> dict:
         pr = pr[0]
     wall = time.perf_counter() - t0
     launches = {k: n - before[k] for k, n in launch_counts().items()}
+    if perm is not None:
+        # a reordered store solves in stored order; report in original ids
+        from repro_torch.graphs.reorder import unpermute_ranks
+
+        pr, ref = unpermute_ranks(pr, perm), unpermute_ranks(ref, perm)
 
     report = dict(
         variant=args.variant, n=g.n, m=g.m, device=name, plan=ps,
         iterations=int(r.iterations), sweeps=r.sweeps, err=float(r.err),
         wall_s=wall, l1=l1_norm(pr, ref), oracle_iterations=it_seq,
-        top5=np.argsort(pr)[::-1][:5].tolist(), launches=launches,
+        top5=np.argsort(pr)[::-1][:5].tolist(), launches=launches, pr=pr,
     )
     print(f"variant={args.variant}: iterations={report['iterations']} "
           f"err={report['err']:.2e} wall={wall:.3f}s")
     print(f"L1 vs sequential(1e-12, {it_seq} iters): {report['l1']:.3e}")
     print(f"top-5 ranks: {report['top5']}")
     print("kernel launches: " + " ".join(f"{k}={n}" for k, n in launches.items()))
+    if args.ckpt:
+        # the partition count baked into the bundle (1 when unpartitioned),
+        # not --threads: a reshard on load must not assume a layout the
+        # solve never used
+        p = bundle_partitions(bundle)
+        SolverCheckpoint(pr=pr, round=report["iterations"], n=g.n, p=p).save(args.ckpt)
+        path = args.ckpt if args.ckpt.endswith(".npz") else args.ckpt + ".npz"
+        report.update(ckpt=path, ckpt_p=p)
+        print(f"checkpointed to {path} (p={p})")
     return report
 
 

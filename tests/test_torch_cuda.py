@@ -910,3 +910,56 @@ def test_engine_cuda_backend_updates_on_card_match_cpu_twin(cuda):
             assert (ref[r.indices] >= kth - 1e-6).all(), (phase, qid)
             assert np.abs(r.values - ref[r.indices]).max() < 1e-5
             assert np.abs(r.values - twin[qid].values).max() < 1e-5
+
+
+@pytest.mark.parametrize("plan", [{}, {"sleeps": {(0, it): 5.0 for it in range(1, 200)}},
+                                  {"failures": {1: 2}}])
+@pytest.mark.parametrize("discipline", ["barrier", "nosync", "waitfree"])
+def test_simulate_on_card_equals_cpu(cuda, discipline, plan):
+    """The fault simulator's float64 sweeps on the card against the same
+    call on the CPU: the same iterations, modelled time and work (the cost
+    model branches on every sweep's residual), ranks within 1e-12 in L1."""
+    from repro_torch.core.runtime import FaultPlan, simulate
+
+    g = rmat_graph(10, avg_degree=6, seed=7)
+    kw = dict(threshold=1e-8,
+              max_iter=60 if discipline == "barrier" and plan.get("failures") else 1000)
+    card = simulate(PartitionedGraph.from_graph(g, p=8, device=cuda), discipline,
+                    FaultPlan(**plan), **kw)
+    cpu = simulate(PartitionedGraph.from_graph(g, p=8, device="cpu"), discipline,
+                   FaultPlan(**plan), **kw)
+    assert (card.iterations, card.sim_time, card.work_done) == \
+        (cpu.iterations, cpu.sim_time, cpu.work_done)
+    assert l1_norm(card.pr, cpu.pr) <= 1e-12
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_blocked_graph_from_a_memmap_store_on_card(cuda, tmp_path, weighted):
+    """BlockedGraph.build from a store's read-only memmaps on the card
+    equals the build from the resident graph, tensor for tensor, and the
+    blocked_nosync solve on it runs gs_pass to the same ranks."""
+    from repro_torch.graphs import load_graph, save_graph
+
+    g = make_dataset("webStanford", scale_down=64)
+    if weighted:
+        rng = np.random.default_rng(1)
+        g = Graph.from_arrays(g.n, g.src, g.dst, g.out_degree, g.in_ptr,
+                              weights=1.0 - rng.random(g.m),
+                              bias=rng.uniform(0.5, 1.5, g.n))
+    save_graph(tmp_path / "s", g)
+    h = load_graph(tmp_path / "s", mmap=True)
+    assert h.is_memmap
+    a = BlockedGraph.build(g, block=256, device=cuda)
+    b = BlockedGraph.build(h, block=256, device=cuda)
+    for f in dataclasses.fields(BlockedGraph):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            assert y.device.type == "cuda" and torch.equal(x, y), f.name
+        else:
+            assert x == y, f.name
+    reset_launch_counts()
+    ra = solve_variant("blocked_nosync", g, device=cuda, threshold=1e-8)
+    rb = solve_variant("blocked_nosync", str(tmp_path / "s"), device=cuda,
+                       threshold=1e-8)
+    assert launch_counts()["gs_pass"] == ra.iterations + rb.iterations
+    assert ra.iterations == rb.iterations and torch.equal(ra.pr, rb.pr)

@@ -74,8 +74,13 @@ def test_dataset_registry_matches_reference():
 
 
 def test_make_dataset_cache_waits_for_the_store_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="store"):
-        make_dataset("webStanford", scale_down=2048, cache_dir=str(tmp_path))
+    # the store slice has landed: the cache keeps a store, and a second
+    # call loads it memmap-backed (tests/test_torch_store.py holds the rest)
+    built = make_dataset("webStanford", scale_down=2048, cache_dir=str(tmp_path))
+    hit = make_dataset("webStanford", scale_down=2048, cache_dir=str(tmp_path))
+    assert hit.is_memmap and not built.is_memmap
+    for name in ("src", "dst", "out_degree", "in_ptr"):
+        assert np.array_equal(getattr(built, name), getattr(hit, name))
 
 
 @pytest.mark.parametrize("n_pad", [None, 300])

@@ -75,3 +75,9 @@ def test_the_audit_covers_the_dynamic_and_serving_modules(module):
     "core/distributed.py", "launch/mesh.py", "serving/ppr_engine.py"])
 def test_the_audit_covers_the_distributed_modules(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", [
+    "graphs/store.py", "graphs/datasets.py", "core/runtime.py", "device.py"])
+def test_the_audit_covers_the_store_and_runtime_modules(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES

@@ -41,7 +41,7 @@ from repro_torch.core.solver import (
     solve,
     solve_variant,
 )
-from repro_torch.graphs import graph_from_arrays, rmat_graph
+from repro_torch.graphs import StoreError, graph_from_arrays, rmat_graph
 from repro_torch.launch import pagerank_run
 from test_solver import SURROGATES
 
@@ -257,13 +257,22 @@ def test_launcher_runs_the_solve_path_on_cpu(capsys):
     assert "blocked_nosync_opt" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--store=/tmp/x"],
-                                  ["--ckpt", "/tmp/x", "--device", "cpu"],
-                                  ["build"], ["--store", "/tmp/x"],
-                                  ["--ckpt=/tmp/x"]])
-def test_launcher_rejects_later_slices(argv):
-    with pytest.raises(NotImplementedError, match="not ported"):
+@pytest.mark.parametrize("argv", [["--store={missing}"],
+                                  ["--store", "{build}", "--ckpt", "{ckpt}",
+                                   "--device", "cpu"],
+                                  ["build"], ["--store", "{build}"],
+                                  ["build", "--out", "{build}"]])
+def test_launcher_rejects_later_slices(argv, tmp_path):
+    # the build pipeline (the `build` subcommand, and --store on its output
+    # directories, which hold a store below them) comes with slice 12;
+    # --store on a store and --ckpt run since slice 11
+    (tmp_path / "build" / "raw").mkdir(parents=True)
+    paths = dict(missing=tmp_path / "missing", build=tmp_path / "build",
+                 ckpt=tmp_path / "pr")
+    argv = [a.format(**paths) for a in argv]
+    with pytest.raises((NotImplementedError, StoreError), match="slice 12"):
         pagerank_run.main(argv)
+    assert not (tmp_path / "pr.npz").exists()
 
 
 def test_launcher_serves_on_a_mesh(capsys):

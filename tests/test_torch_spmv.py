@@ -557,3 +557,35 @@ def test_group_lanes_take_the_warp_xor_tree(group):
             x = (x + x[np.arange(group) ^ lvl]).astype(f)
             lvl //= 2
         assert np.array_equal(x, np.full(group, warp, f))
+
+
+@pytest.mark.parametrize("launch,entry", [
+    ("launch_spmv_csr_rows", "spmv_csr_acc"), ("launch_gs_pass", "gs_pass"),
+    ("launch_gs_pass_multi", "gs_pass_multi")])
+def test_each_launch_enters_its_operands_card(launch, entry):
+    """The three launch helpers read alike: the library's entry point, the
+    card's plan and the shared-memory query all run inside
+    ``with torch.cuda.device(dev):``, ``dev`` the operands' device, so a
+    launch lands on the card its tensors sit on, not the current one.  One
+    card cannot show the fault and the CPU runs the plain versions, so the
+    check reads the source."""
+    import ast
+    import inspect
+
+    from repro_torch.kernels.spmv import kernel
+
+    fn = ast.parse(inspect.getsource(getattr(kernel, launch))).body[0]
+    guarded = set()
+    for node in ast.walk(fn):
+        if isinstance(node, ast.With) and any(
+                ast.unparse(item.context_expr) == "torch.cuda.device(dev)"
+                for item in node.items):
+            guarded |= {id(n) for n in ast.walk(node)}
+    calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)]
+    entries = [c for c in calls if ast.unparse(c.func) == f"lib.{entry}"]
+    assert len(entries) == 1 and id(entries[0]) in guarded
+    # the launch parameters the card decides (its plan, its CTA count) are
+    # asked of the same card
+    for c in calls:
+        if ast.unparse(c.func) in ("gs_pass_plan", "_spmv_ctas"):
+            assert id(c) in guarded, ast.unparse(c)

@@ -118,17 +118,31 @@ Phases, one or more lines each; any failure exits non-zero:
                queries: rounds, pushes, the L1 certificate, wall; every
                estimate at or below the oracle, every top-10 the oracle's
                up to the certificate;
-    store   — the socLiveJournal1 surrogate at full size (n 4,847,571,
-               m 68,993,773) made by make_dataset into a dataset cache
-               under build/ (generate and save timed apart), then asked
-               for again: a memmap-backed, CRC-verified cache hit equal to
-               the build array for array; from the memmap, blocked_nosync
-               (gs_pass) and blocked (spmv_csr_acc) with dangling
-               redistribution, the first 2 launches of each warm-up held
-               against the plain versions, launches = passes, L1 to the
-               float64 oracle ≤ 1e-4; both kernels timed at that size
-               beside their bytes bounds (and torch.sparse for
-               spmv_csr_acc); full webStanford saved BFS-ordered with its
+    build   — the out-of-core build pipeline through the launcher's build:
+               at 1/16 of socLiveJournal1, an unordered build's raw store
+               has the array files and CRC-32s of make_dataset's cache
+               entry, and reorder_store of that entry equals a BFS build;
+               then socLiveJournal1 at full size (n 4,847,571, m
+               68,993,773) streamed to disk under build/ in two child
+               processes (--stages generate, then a resume that skips it
+               and runs the BFS reorder and the layout), each stage's wall
+               and each child's peak RSS beside 16 m bytes; the raw store
+               has the Table-1 counts and verifies, LAYOUT.json's bounds
+               are partition_ranges(56); from the raw store's memmap,
+               blocked_nosync (gs_pass) and blocked (spmv_csr_acc) with
+               dangling redistribution, the first 2 launches of each
+               warm-up held against the plain versions, launches = passes,
+               L1 to the float64 oracle ≤ 1e-4, both kernels timed beside
+               their bytes bounds (and torch.sparse for spmv_csr_acc);
+               blocked_nosync from the BFS-reordered store, ranks in
+               original ids held to the same oracle, gs_pass timed there;
+               full webStanford built BFS-ordered and solved by the
+               launcher's --store <build dir> --ckpt: original ids, within
+               1e-4 of a resident solve's; the builds are deleted at the
+               end;
+    store   — the dataset cache at 1/16 of socLiveJournal1 (make_dataset
+               saves, then hits: memmap-backed, CRC-verified, equal array
+               for array); full webStanford saved BFS-ordered with its
                perm and solved by the launcher with --store and --ckpt:
                ranks in original ids, within 1e-4 of a resident solve's,
                the checkpoint's p and ranks the report's; the stores are
@@ -305,12 +319,21 @@ DYN_L1 = 1e-6
 # the global float64 oracle of an updated graph stops when a step moves
 # the vector by at most this in L1; it is then within d / (1 - d) of it
 GLOBAL_ORACLE_STEP = 1e-13
-# the store phase: socLiveJournal1 at full size (n 4,847,571, m 68,993,773)
-# in a dataset cache under the checkout's git-ignored build/, deleted at the
-# phase's end; the first launches of each warm-up held to the plain versions
+# the build phase: socLiveJournal1 (n 4,847,571, m 68,993,773) streamed to
+# disk by the launcher's build under the checkout's git-ignored build/,
+# deleted at the phase's end; its parity with the in-RAM path is checked at
+# 1/16 of that size; the first launches of each warm-up held to the plain
+# versions; the layout stage's partitions are the launcher's --threads
 STORE_DATASET = "socLiveJournal1"
-STORE_DIR = os.path.join(ROOT, "build", "smoke_store")
+BUILD_DIR = os.path.join(ROOT, "build", "smoke_build")
+BUILD_PARITY_SCALE_DOWN = 16
+BUILD_THREADS = 56
+BUILD_CHILD_TIMEOUT = 600  # seconds for one child's build stages
 STORE_CHECKED = 2
+# the store phase: the dataset cache at 1/16 of socLiveJournal1, and full
+# webStanford saved BFS-ordered, under build/ and deleted at the end
+STORE_DIR = os.path.join(ROOT, "build", "smoke_store")
+STORE_CACHE_SCALE_DOWN = 16
 # the faults phase: benchmarks/bench_faults.py's setup (p = 8, threshold
 # 1e-8, worker 0 asleep 2, 5, 10 every iteration; 1, 2, 3 workers failed at
 # iteration 2, barrier cut at 60 rounds) on full webStanford; card and CPU
@@ -1910,35 +1933,40 @@ def timed_calls(owner, name: str):
         setattr(owner, name, real)
 
 
-def store_solves(g, dev, oracle):
-    """``blocked_nosync`` (gs_pass) and ``blocked`` (spmv_csr_acc) with
-    dangling redistribution on the memmap-backed ``g``, from one blocked
-    build (the two share the layout).  Each solve runs twice: a warm-up
-    whose first STORE_CHECKED launches are held against the plain
-    versions, then a counted solve (launches = passes) held to the float64
-    ``oracle`` (vector, L1 error bound) within L1_DEFAULT.  Returns the
-    bundle and, per kernel, its launches."""
+def memmap_solves(g, dev, oracle, where, variants=(("blocked_nosync", "gs_pass"),
+                                                   ("blocked", "spmv_csr_acc")),
+                  perm=None):
+    """Each of ``variants`` (variant, its kernel) with dangling
+    redistribution on the memmap-backed ``g``, from one blocked build (the
+    variants share the layout).  Each solve runs twice: a warm-up whose
+    first STORE_CHECKED launches are held against the plain versions, then
+    a counted solve (launches = passes) whose ranks, mapped to original ids
+    by ``perm`` where the store was reordered, are held to the float64
+    ``oracle`` (vector, L1 error bound) of the original graph within
+    L1_DEFAULT.  ``where`` names the store in the printed lines.  Returns
+    the bundle and, per kernel, its launches."""
     from repro_torch.core.pagerank import l1_norm
     from repro_torch.core.solver import build_variant, get_variant
+    from repro_torch.graphs import unpermute_ranks
     from repro_torch.kernels.spmv import launch_counts, reset_launch_counts
 
     t0 = time.perf_counter()
     _, bg = build_variant("blocked_nosync", g, device=dev, block=256)
     torch.cuda.synchronize()
-    print(f"store bundle: BlockedGraph from the memmap in "
+    print(f"build bundle ({where}): BlockedGraph from the memmap in "
           f"{time.perf_counter() - t0:.2f}s: {bg.n_blocks} blocks of {bg.block}, "
           f"largest block {int(np.diff(np.asarray(g.in_ptr)[::256]).max())} "
           f"in-edges (the last block aside)", flush=True)
     ref, ref_err = oracle
+    holders = {"gs_pass": checked_passes, "spmv_csr_acc": checked_spmv}
     launches = {}
-    for variant, kernel, holder in (("blocked_nosync", "gs_pass", checked_passes),
-                                    ("blocked", "spmv_csr_acc", checked_spmv)):
+    for variant, kernel in variants:
         v = get_variant(variant)
         kw = dict(threshold=SOLVE_THRESHOLD, handle_dangling=True)
-        with holder(f"{STORE_DATASET}, {variant}", calls=STORE_CHECKED) as seen:
+        with holders[kernel](f"{where}, {variant}", calls=STORE_CHECKED) as seen:
             v.run(bg, **kw)
         held = len(seen["frozen"]) if kernel == "gs_pass" else seen["calls"]
-        check(held == STORE_CHECKED, f"store {variant}: {held} launches held, "
+        check(held == STORE_CHECKED, f"{where} {variant}: {held} launches held, "
               f"expected {STORE_CHECKED}")
         reset_launch_counts()
         torch.cuda.synchronize()
@@ -1949,15 +1977,18 @@ def store_solves(g, dev, oracle):
         counts = launch_counts()
         for k, n in counts.items():
             want = r.iterations if k == kernel else 0
-            check(n == want, f"store {variant}: {k} launched {n} times, "
+            check(n == want, f"{where} {variant}: {k} launched {n} times, "
                   f"expected {want} (its passes)")
+        if perm is not None:
+            pr = unpermute_ranks(pr, perm)
         l1 = l1_norm(pr, ref)
-        check(l1 <= L1_DEFAULT, f"store {variant}: L1 {l1:.3e} to the float64 "
+        check(l1 <= L1_DEFAULT, f"{where} {variant}: L1 {l1:.3e} to the float64 "
               f"oracle > {L1_DEFAULT:g}")
         launches[kernel] = r.iterations
-        print(f"store solve {variant} --handle-dangling ({STORE_DATASET}, memmap): "
+        print(f"build solve {variant} --handle-dangling ({where}, memmap): "
               f"passes={r.iterations} err={float(r.err):.3e} wall_s={wall:.4f} "
-              f"ms_a_pass={1e3 * wall / r.iterations:.3f} l1={l1:.3e} (bound "
+              f"ms_a_pass={1e3 * wall / r.iterations:.3f} l1={l1:.3e}"
+              f"{' (original ids)' if perm is not None else ''} (bound "
               f"{L1_DEFAULT:g}; oracle error <= {ref_err:.1e}) launches={counts}; "
               f"the warm-up's first {STORE_CHECKED} launches within the entry "
               f"bound of the plain version (worst {seen['entry_rel']:.3e})",
@@ -1965,12 +1996,13 @@ def store_solves(g, dev, oracle):
     return bg, launches
 
 
-def store_kernel_times(g, bg, dev):
-    """gs_pass and spmv_csr_acc at the store's size by device time in a
-    trace, beside their bytes bounds, their plain versions (CUDA events)
-    and, for spmv_csr_acc, the library call (torch.sparse CSR mv).
-    gs_pass as blocked_nosync runs it: no frozen lanes."""
-    from repro_torch.kernels.spmv import gs_pass, gs_pass_ref, spmv_csr_acc, spmv_csr_acc_ref
+def memmap_kernel_times(g, bg, dev, where, kernels=("gs_pass", "spmv_csr_acc")):
+    """``kernels`` (gs_pass, spmv_csr_acc) on the memmap store's operands
+    by device time in a trace, beside their bytes bounds, their plain
+    versions (CUDA events) and, for spmv_csr_acc, the library call
+    (torch.sparse CSR mv).  gs_pass as blocked_nosync runs it: no frozen
+    lanes.  ``where`` names the store in the printed lines."""
+    from repro_torch.kernels.spmv import gs_pass, gs_pass_ref
 
     rng = np.random.default_rng(0)
     pr, _, params = gs_inputs(g, bg, rng)
@@ -1981,11 +2013,37 @@ def store_kernel_times(g, bg, dev):
     def gs():
         return gs_pass(*gs_args)
 
-    ms, by = device_ms(gs, 5, warmup=1)
-    stats = {"gs_pass": dict(
-        n=g.n, m=m, ms=ms, timed_by=by, batch_ms=batch_ms(gs, 5, warmup=1),
-        plain_ms=time_ms(lambda: gs_pass_ref(*gs_args), 1, warmup=0),
-        bound_ms=bound_ms(4 * n_pad * 4 + 12 + csr_bytes), walk_steps=bg.n_blocks)}
+    stats = {}
+    if "gs_pass" in kernels:
+        ms, by = device_ms(gs, 5, warmup=1)
+        stats["gs_pass"] = dict(
+            n=g.n, m=m, ms=ms, timed_by=by, batch_ms=batch_ms(gs, 5, warmup=1),
+            plain_ms=time_ms(lambda: gs_pass_ref(*gs_args), 1, warmup=0),
+            bound_ms=bound_ms(4 * n_pad * 4 + 12 + csr_bytes), walk_steps=bg.n_blocks)
+    if "spmv_csr_acc" in kernels:
+        stats["spmv_csr_acc"] = spmv_times(g, bg, dev, pr, csr_bytes)
+    for name, s in stats.items():
+        lib = (f" library_ms={s['library_ms']:.4f} (torch.sparse CSR mv, by "
+               f"{s['library_by']})" if "library_ms" in s else
+               f" ({s['walk_steps']} dependent block steps a pass)")
+        print(f"build kernel {name} ({where}) at n={s['n']} m={s['m']}: "
+              f"ms={s['ms']:.4f} (device, by {s['timed_by']}; {s['batch_ms']:.4f} a "
+              f"call by events around calls back to back) plain_ms="
+              f"{s['plain_ms']:.4f} (events) bound_ms={s['bound_ms']:.4f} (bytes)"
+              f"{lib}", flush=True)
+        check(s["ms"] >= s["bound_ms"] and s["batch_ms"] >= s["bound_ms"],
+              f"build kernel {name} ({where}): {s['ms']:.4f} / {s['batch_ms']:.4f} "
+              f"ms below its bytes bound {s['bound_ms']:.4f}: a time lost device "
+              f"work")
+    return stats
+
+
+def spmv_times(g, bg, dev, pr, csr_bytes):
+    """spmv_csr_acc on ``bg``'s operands: device time, a call back to back,
+    plain version, bytes bound and torch.sparse CSR mv."""
+    from repro_torch.kernels.spmv import spmv_csr_acc, spmv_csr_acc_ref
+
+    n_pad, m = bg.n_blocks * bg.block, g.m
     contrib = pr * bg.inv_out
     spmv_args = (contrib, bg.in_ptr, bg.src, None)
 
@@ -1997,38 +2055,296 @@ def store_kernel_times(g, bg, dev):
                                   (n_pad, n_pad))
     flat = contrib.reshape(-1)
     lib_ms, lib_by = device_ms(lambda: torch.mv(csr, flat), 20)
-    stats["spmv_csr_acc"] = dict(
-        n=g.n, m=m, ms=ms, timed_by=by, batch_ms=batch_ms(spmv, 100),
-        plain_ms=time_ms(lambda: spmv_csr_acc_ref(*spmv_args), 5),
-        bound_ms=bound_ms(4 * n_pad + csr_bytes + 4 * n_pad),
-        library_ms=lib_ms, library_by=lib_by)
-    for name, s in stats.items():
-        lib = (f" library_ms={s['library_ms']:.4f} (torch.sparse CSR mv, by "
-               f"{s['library_by']})" if "library_ms" in s else
-               f" ({s['walk_steps']} dependent block steps a pass)")
-        print(f"store kernel {name} at n={s['n']} m={s['m']}: ms={s['ms']:.4f} "
-              f"(device, by {s['timed_by']}; {s['batch_ms']:.4f} a call by events "
-              f"around calls back to back) plain_ms={s['plain_ms']:.4f} (events) "
-              f"bound_ms={s['bound_ms']:.4f} (bytes){lib}", flush=True)
-        check(s["ms"] >= s["bound_ms"] and s["batch_ms"] >= s["bound_ms"],
-              f"store kernel {name}: {s['ms']:.4f} / {s['batch_ms']:.4f} ms below "
-              f"its bytes bound {s['bound_ms']:.4f}: a time lost device work")
-    return stats
+    return dict(n=g.n, m=m, ms=ms, timed_by=by, batch_ms=batch_ms(spmv, 100),
+                plain_ms=time_ms(lambda: spmv_csr_acc_ref(*spmv_args), 5),
+                bound_ms=bound_ms(4 * n_pad + csr_bytes + 4 * n_pad),
+                library_ms=lib_ms, library_by=lib_by)
+
+
+# The child samples its own RSS (/proc/self/statm) every 20 ms while it
+# works, and reads the kernel's high-water mark of its address space
+# (VmHWM) after it where /proc has one (the card's sandbox has none).
+# ru_maxrss is reported beside them but is no measure of the child: Linux
+# carries the parent's peak over the exec of a forked child, so it reads
+# at least the parent's RSS at the fork.  argv is the launcher's
+# ``build ...``, or ``make_dataset NAME SCALE_DOWN`` (the in-RAM path,
+# scripts/build_rss.py's comparison).
+RSS_CHILD = """
+import json, os, resource, sys, threading
+
+
+def rss():
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+peak, done = [rss()], threading.Event()
+
+
+def sample():
+    while not done.wait(0.02):
+        now = rss()
+        if now is not None and peak[0] is not None:
+            peak[0] = max(peak[0], now)
+
+
+sampler = threading.Thread(target=sample, daemon=True)
+sampler.start()
+if sys.argv[1] == "build":
+    from repro_torch.launch import pagerank_run
+    rep = pagerank_run.run(sys.argv[1:])
+    rep = {k: rep[k] for k in ("stages", "n", "m", "nbytes")}
+else:
+    from repro_torch.graphs import make_dataset
+    g = make_dataset(sys.argv[2], scale_down=float(sys.argv[3]))
+    rep = dict(n=g.n, m=g.m)
+done.set()
+sampler.join()
+try:
+    with open("/proc/self/status") as f:
+        mem = [l.split(None, 1) for l in f if l.startswith(("Vm", "Rss"))]
+except OSError:
+    mem = []
+mem = {k.rstrip(":"): v.strip() for k, v in mem}
+hwm = mem.get("VmHWM")
+print(json.dumps(dict(rep, sampled_peak=peak[0], status=mem,
+                      hwm=int(hwm.split()[0]) * 1024 if hwm else None,
+                      maxrss=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)))
+"""
+
+
+def rss_child(argv: list[str]) -> dict:
+    """RSS_CHILD on ``argv`` in a child process; returns its report (for
+    ``build``: stages, n, m, nbytes), its peak RSS in bytes as the child
+    read it (``sampled_peak``, ``hwm``: None where not measured;
+    ``maxrss`` as getrusage reports it; ``status``: /proc/self/status's
+    memory lines at its end) and the child's wall (``wall_s``).  The
+    child's own output lines are printed indented."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", RSS_CHILD, *argv], env=env,
+                         capture_output=True, text=True, timeout=BUILD_CHILD_TIMEOUT)
+    lines = out.stdout.splitlines()
+    for line in lines[:-1]:
+        print(f"  {line}")
+    check(out.returncode == 0 and bool(lines),
+          f"child {argv}: exit {out.returncode}: {out.stderr[-3000:]}")
+    rep = json.loads(lines[-1])
+    rep["wall_s"] = time.perf_counter() - t0
+    return rep
+
+
+def build_phase(g_ws, dev):
+    """The out-of-core build pipeline through the launcher's ``build``.
+
+    1. Parity at 1/BUILD_PARITY_SCALE_DOWN of socLiveJournal1: an
+       unordered build's raw store has the array files and CRC-32s of
+       ``make_dataset``'s cache entry (the in-RAM path), and
+       ``reorder_store`` of that entry gives the reordered arrays and perm
+       of a BFS build.
+    2. Full size, streamed, in two child processes: ``--stages generate``,
+       then a resume that skips generate and runs the BFS reorder and the
+       layout; each stage's wall and each child's peak RSS beside 16·m
+       bytes (the int64 edge list the in-RAM path holds).  The raw store
+       has the Table-1 counts and passes ``verify()``; ``LAYOUT.json``'s
+       bounds are the final store's ``partition_ranges(BUILD_THREADS)``.
+    3. From the raw store's memmap (the in-RAM graph, by 1.):
+       blocked_nosync (gs_pass) and blocked (spmv_csr_acc) held to the
+       float64 oracle, both kernels timed.
+    4. From the BFS-reordered store: blocked_nosync, ranks mapped to
+       original ids held to the same oracle, gs_pass timed there.
+    5. webStanford built BFS-ordered and solved by ``--store <build dir>
+       --ckpt``: original ids, within L1_DEFAULT of the resident solve's.
+
+    The build directories are deleted at the end.  Returns the kernels'
+    stats on the raw store, gs_pass's on the BFS store, and their launches
+    by path."""
+    import shutil
+
+    from repro_torch.core.pagerank import l1_norm
+    from repro_torch.core.runtime import SolverCheckpoint
+    from repro_torch.core.solver import build_variant
+    from repro_torch.graphs import DATASETS, GraphStore, dataset_cache_path, make_dataset
+    from repro_torch.graphs.pipeline import (
+        final_store_path, raw_store_path, reorder_store, reordered_store_path,
+    )
+    from repro_torch.kernels.spmv import launch_counts, reset_launch_counts
+    from repro_torch.launch import pagerank_run
+
+    def under(name):
+        return os.path.join(BUILD_DIR, name)
+
+    shutil.rmtree(BUILD_DIR, ignore_errors=True)
+    try:
+        # 1. parity with the in-RAM path at a cut size
+        sd = BUILD_PARITY_SCALE_DOWN
+        argv = ["build", "--dataset", STORE_DATASET, "--scale-down", str(sd)]
+        t0 = time.perf_counter()
+        plain = pagerank_run.run(argv + ["--order", "none", "--out", under("sd_none")])
+        none_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        make_dataset(STORE_DATASET, scale_down=sd, cache_dir=under("cache"))
+        cache_s = time.perf_counter() - t0
+        entry = GraphStore(dataset_cache_path(STORE_DATASET, sd, 0, under("cache")))
+        raw = GraphStore(plain["store"])
+        raw.verify()
+        entry.verify()
+        check(raw.meta["arrays"] == entry.meta["arrays"],
+              f"build parity: the 1/{sd} raw store's arrays {raw.meta['arrays']} are "
+              f"not make_dataset's {entry.meta['arrays']}")
+        t0 = time.perf_counter()
+        adopted = GraphStore(reorder_store(entry.path, under("sd_reorder"),
+                                           order="bfs")["store"])
+        reorder_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bfs = GraphStore(pagerank_run.run(argv + ["--order", "bfs", "--out",
+                                                  under("sd_bfs")])["store"])
+        bfs_s = time.perf_counter() - t0
+        check(adopted.meta["arrays"] == bfs.meta["arrays"]
+              and np.array_equal(adopted.perm(), bfs.perm()),
+              f"build parity: reorder_store of the 1/{sd} cache entry differs from "
+              f"build --order bfs")
+        print(f"build parity ({STORE_DATASET}, scale_down {sd}: n={raw.n} m={raw.m}): "
+              f"build --order none {none_s:.2f}s, its raw store's "
+              f"{len(raw.meta['arrays'])} array files and CRC-32s equal to "
+              f"make_dataset's cache entry ({cache_s:.2f}s); reorder_store of that "
+              f"entry ({reorder_s:.2f}s) equal to build --order bfs ({bfs_s:.2f}s), "
+              f"array for array with its perm", flush=True)
+        for name in ("sd_none", "cache", "sd_reorder", "sd_bfs"):
+            shutil.rmtree(under(name))
+
+        # 2. full size, streamed, generate and then a resume in two children
+        out = under(STORE_DATASET)
+        argv = ["build", "--dataset", STORE_DATASET, "--scale-down", "1",
+                "--order", "bfs", "--out", out]
+        first = rss_child(argv + ["--stages", "generate"])
+        second = rss_child(argv)
+        check(list(first["stages"]) == ["generate"]
+              and not first["stages"]["generate"]["skipped"],
+              f"build --stages generate ran {first['stages']}")
+        check([second["stages"][k]["skipped"] for k in ("generate", "reorder", "layout")]
+              == [True, False, False],
+              f"build resume: stages {second['stages']}, expected generate skipped")
+        edge_list = 16 * second["m"]
+        for tag, child in (("--stages generate", first), ("resume", second)):
+            walls = " ".join(f"{k}={v['wall_s']:.2f}s" + (" (skipped)" if v["skipped"] else "")
+                             for k, v in child["stages"].items())
+            peaks = [p for p in (child["sampled_peak"], child["hwm"]) if p is not None]
+            peak = (f"{max(peaks):,} ({max(peaks) / edge_list:.3f} of 16 m = "
+                    f"{edge_list:,} bytes, the in-RAM int64 edge list)" if peaks
+                    else "not measured")
+            print(f"build child {tag} ({STORE_DATASET}, full size): {walls}; child "
+                  f"wall_s={child['wall_s']:.2f} peak_rss_bytes={peak}; sampled every "
+                  f"20 ms {child['sampled_peak']}, VmHWM {child['hwm']}, ru_maxrss "
+                  f"{child['maxrss']:,} (the parent's peak carried over the exec)",
+                  flush=True)
+        spec = DATASETS[STORE_DATASET]
+        raw = GraphStore(raw_store_path(out))
+        check((raw.n, raw.m) == (spec.n_vertices, spec.n_edges),
+              f"build: raw store n={raw.n} m={raw.m}, Table 1 says "
+              f"{spec.n_vertices} / {spec.n_edges}")
+        t0 = time.perf_counter()
+        raw.verify()
+        verify_s = time.perf_counter() - t0
+        final = GraphStore(final_store_path(out))
+        check(final.path == reordered_store_path(out) and final.order == "bfs",
+              f"build: the final store is {final.path} ({final.order})")
+        h = final.graph(mmap=True)
+        lay = final.layout()
+        check(lay is not None and lay["threads"] == BUILD_THREADS
+              and lay["partition_bounds"] == h.partition_ranges(BUILD_THREADS).tolist(),
+              "build: LAYOUT.json's bounds are not the final store's partition_ranges")
+        print(f"build stores: raw n={raw.n} m={raw.m} bytes={raw.nbytes():,} "
+              f"(verify() {verify_s:.2f}s); final {os.path.relpath(final.path, out)} "
+              f"bytes={final.nbytes():,}; LAYOUT.json {len(lay['partition_edges'])} "
+              f"partitions, in-edges max {max(lay['partition_edges'])} mean "
+              f"{np.mean(lay['partition_edges']):.1f}", flush=True)
+
+        # 3. solves and kernel times from the raw store's memmap
+        g = raw.graph(mmap=True)
+        t0 = time.perf_counter()
+        oracle = global_oracle(g, dangling=True)
+        print(f"build oracle: scipy float64, {oracle[2]} iterations to an L1 step "
+              f"<= {GLOBAL_ORACLE_STEP:g} (L1 error <= {oracle[1]:.1e}), "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+        where = f"{STORE_DATASET} raw store"
+        bg, solved = memmap_solves(g, dev, oracle[:2], where)
+        stats = memmap_kernel_times(g, bg, dev, where)
+        for kernel, n in solved.items():
+            stats[kernel]["launches"] = n
+        del bg, g
+        torch.cuda.empty_cache()
+
+        # 4. the BFS-reordered store, ranks in original ids
+        where = f"{STORE_DATASET} BFS store"
+        bg, solved_bfs = memmap_solves(h, dev, oracle[:2], where,
+                                       variants=(("blocked_nosync", "gs_pass"),),
+                                       perm=final.perm())
+        bfs_stats = memmap_kernel_times(h, bg, dev, where, kernels=("gs_pass",))["gs_pass"]
+        bfs_stats["launches"] = solved_bfs["gs_pass"]
+        print(f"build gs_pass BFS against original order ({STORE_DATASET}): "
+              f"{bfs_stats['ms'] / stats['gs_pass']['ms']:.3f}x a pass "
+              f"({bfs_stats['ms']:.4f} / {stats['gs_pass']['ms']:.4f} ms)", flush=True)
+        del bg, h, oracle
+        torch.cuda.empty_cache()
+
+        # 5. webStanford through build and --store <build dir> --ckpt
+        ws = under("webStanford")
+        ckpt = under("pr")
+        pagerank_run.run(["build", "--dataset", "webStanford", "--scale-down", "1",
+                          "--order", "bfs", "--out", ws])
+        reset_launch_counts()
+        rep = pagerank_run.run(["--store", ws, "--variant", "blocked_nosync",
+                                "--handle-dangling", "--threshold", str(SOLVE_THRESHOLD),
+                                "--ckpt", ckpt])
+        launched = launch_counts()["gs_pass"]
+        check(launched == rep["iterations"],
+              f"build --store: gs_pass launched {launched} times, "
+              f"{rep['iterations']} passes")
+        check(rep["l1"] <= L1_DEFAULT, f"build --store: L1 {rep['l1']:.3e} > {L1_DEFAULT:g}")
+        v, bundle = build_variant("blocked_nosync", g_ws, device=dev)
+        resident = v.run(bundle, threshold=SOLVE_THRESHOLD, handle_dangling=True)
+        res_pr = resident.pr.reshape(-1)[:g_ws.n].double().cpu().numpy()
+        l1_res = l1_norm(rep["pr"], res_pr)
+        check(l1_res <= L1_DEFAULT, f"build --store: ranks {l1_res:.3e} in L1 from "
+              f"the resident solve's (bound {L1_DEFAULT:g}): not in original ids?")
+        ck = SolverCheckpoint.load(rep["ckpt"])
+        check(ck.p == rep["ckpt_p"] == 1 and (ck.n, ck.round) == (g_ws.n, rep["iterations"])
+              and np.array_equal(ck.pr, rep["pr"]),
+              f"build --ckpt: checkpoint p={ck.p} n={ck.n} round={ck.round}, not "
+              f"the report's")
+        print(f"build --store <build dir> --ckpt (webStanford, BFS build): "
+              f"passes={rep['iterations']} launches={launched} l1={rep['l1']:.3e} "
+              f"(original ids); L1 to the resident solve {l1_res:.3e} "
+              f"({resident.iterations} passes); checkpoint p={ck.p}, ranks equal the "
+              f"report's", flush=True)
+        by_path = {"gs_pass": {f"build blocked_nosync ({STORE_DATASET} raw)": solved["gs_pass"],
+                               f"build blocked_nosync ({STORE_DATASET} BFS)":
+                               solved_bfs["gs_pass"],
+                               "build --store <build dir> (webStanford BFS)": launched},
+                   "spmv_csr_acc": {f"build blocked ({STORE_DATASET} raw)":
+                                    solved["spmv_csr_acc"]}}
+        return stats, bfs_stats, by_path
+    finally:
+        shutil.rmtree(BUILD_DIR, ignore_errors=True)
 
 
 def store_phase(g_ws, dev):
-    """The graph store at full size.  socLiveJournal1 is made in RAM by
-    ``make_dataset`` with a cache directory (the generate and save times
-    printed apart), then asked for again: that call must hit the cache,
-    memmap-backed, CRC-verified, array for array the first call's graph.
-    From the memmap, blocked_nosync (gs_pass) and blocked (spmv_csr_acc)
-    with dangling redistribution, each held to the float64 oracle, and both
-    kernels timed at that size.  Then full webStanford (``g_ws``) is saved
-    BFS-ordered with its perm and solved by the launcher with ``--store``
-    and ``--ckpt``: ranks in original ids, equal to a resident solve's
-    within L1_DEFAULT, and the checkpoint reloads with the printed p and
-    the same ranks.  The stores are deleted at the end.  Returns the
-    kernels' stats at the store's size and their launches by path."""
+    """The graph store.  The socLiveJournal1 surrogate at
+    1/STORE_CACHE_SCALE_DOWN of its size is made by ``make_dataset`` with a
+    cache directory (the generate and save times printed apart), then asked
+    for again: that call must hit the cache, memmap-backed, CRC-verified,
+    array for array the first call's graph.  Then full webStanford
+    (``g_ws``) is saved BFS-ordered with its perm and solved by the
+    launcher with ``--store`` and ``--ckpt``: ranks in original ids, equal
+    to a resident solve's within L1_DEFAULT, and the checkpoint reloads
+    with the printed p and the same ranks.  The stores are deleted at the
+    end.  Returns gs_pass's launches by path."""
     import shutil
 
     from repro_torch.core.pagerank import l1_norm
@@ -2043,45 +2359,33 @@ def store_phase(g_ws, dev):
 
     shutil.rmtree(STORE_DIR, ignore_errors=True)
     cache = os.path.join(STORE_DIR, "cache")
+    sd = STORE_CACHE_SCALE_DOWN
     try:
         t0 = time.perf_counter()
         with timed_calls(store, "save_graph") as saved:
-            g = make_dataset(STORE_DATASET, scale_down=1, cache_dir=cache)
+            g = make_dataset(STORE_DATASET, scale_down=sd, cache_dir=cache)
         total = time.perf_counter() - t0
         check(saved["calls"] == 1 and not g.is_memmap,
               f"store: the first make_dataset saved {saved['calls']} stores")
-        path = dataset_cache_path(STORE_DATASET, 1, 0, cache)
+        path = dataset_cache_path(STORE_DATASET, sd, 0, cache)
         st = GraphStore(path)
-        print(f"store make_dataset {STORE_DATASET} (scale_down 1): n={g.n} m={g.m} "
+        print(f"store make_dataset {STORE_DATASET} (scale_down {sd}): n={g.n} m={g.m} "
               f"generate_s={total - saved['s']:.2f} save_s={saved['s']:.2f} "
               f"bytes={st.nbytes():,} files={sorted(st.meta['arrays'])}", flush=True)
         t0 = time.perf_counter()
         with timed_calls(GraphStore, "verify") as verified:
-            h = make_dataset(STORE_DATASET, scale_down=1, cache_dir=cache)
+            h = make_dataset(STORE_DATASET, scale_down=sd, cache_dir=cache)
         reload_s = time.perf_counter() - t0
         check(h.is_memmap, "store: the second make_dataset did not load the cache")
         check(verified["calls"] == 1, "store: the cache hit was not CRC-verified")
-        t0 = time.perf_counter()
         for name in ("src", "dst", "out_degree", "in_ptr"):
             check(np.array_equal(getattr(g, name), getattr(h, name)),
                   f"store: the cache hit's {name} differs from the build's")
         check((h.weights, h.bias) == (None, None), "store: the hit grew weights")
         print(f"store cache hit: memmap-backed, CRC-verified in "
               f"{verified['s']:.2f}s (reload_s={reload_s:.2f}), every array equal "
-              f"to the build's (compared in {time.perf_counter() - t0:.2f}s)",
-              flush=True)
-        del g
-        t0 = time.perf_counter()
-        oracle = global_oracle(h, dangling=True)
-        print(f"store oracle: scipy float64, {oracle[2]} iterations to an L1 step "
-              f"<= {GLOBAL_ORACLE_STEP:g} (L1 error <= {oracle[1]:.1e}), "
-              f"{time.perf_counter() - t0:.2f}s", flush=True)
-        bg, solved = store_solves(h, dev, oracle[:2])
-        stats = store_kernel_times(h, bg, dev)
-        for kernel, n in solved.items():
-            stats[kernel]["launches"] = n
-        del bg, h, oracle
-        torch.cuda.empty_cache()
+              f"to the build's", flush=True)
+        del g, h
 
         # webStanford BFS-ordered, through the launcher's --store and --ckpt
         perm = compute_order(g_ws, "bfs")
@@ -2115,11 +2419,7 @@ def store_phase(g_ws, dev):
               f"({resident.iterations} passes; bound {L1_DEFAULT:g}); top5 "
               f"{rep['top5']}; checkpoint n={ck.n} p={ck.p} round={ck.round}, "
               f"ranks equal the report's", flush=True)
-        by_path = {"gs_pass": {f"store blocked_nosync ({STORE_DATASET})": solved["gs_pass"],
-                               "store --store --ckpt (webStanford BFS)": launched},
-                   "spmv_csr_acc": {f"store blocked ({STORE_DATASET})":
-                                    solved["spmv_csr_acc"]}}
-        return stats, by_path
+        return {"store --store --ckpt (webStanford BFS)": launched}
     finally:
         shutil.rmtree(STORE_DIR, ignore_errors=True)
 
@@ -2699,10 +2999,12 @@ def main() -> int:
         # at full size
         push_phase(g, oracle, sorted({_key(q.seeds) for q in queries[:PPR_ROWS]}))
     del gw, oracle
-    with phase_wall("store"):
-        store_stats, paths = store_phase(g, dev)
+    with phase_wall("build"):
+        build_stats, bfs_stats, paths = build_phase(g, dev)
         for kernel, by_path in paths.items():
             launches[kernel].update(by_path)
+    with phase_wall("store"):
+        launches["gs_pass"].update(store_phase(g, dev))
     with phase_wall("faults"):
         faults_phase(g, dev)
     del g
@@ -2733,8 +3035,10 @@ def main() -> int:
             **({"k": s["k"], "D": s["D"]} if name == "gs_pass" else {}),
             # one partition of the p = 4 distributed solves (spmv_csr_rows)
             **({"partition_p4": part} if name == "spmv_csr_acc" else {}),
-            # the store phase's full-size socLiveJournal1, from its memmap
-            **({STORE_DATASET: store_stats[name]} if name in store_stats else {}),
+            # the build phase's full-size socLiveJournal1, from the memmaps
+            # of its streamed raw store and of its BFS-reordered store
+            **({STORE_DATASET: build_stats[name]} if name in build_stats else {}),
+            **({f"{STORE_DATASET} BFS (build)": bfs_stats} if name == "gs_pass" else {}),
         })
     f = flash[(torch.bfloat16, None)]  # prefill's shape and dtype, causal
     kernels.append({

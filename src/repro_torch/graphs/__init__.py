@@ -16,7 +16,8 @@ from repro_torch.graphs.reorder import (
     random_order,
     unpermute_ranks,
 )
-from repro_torch.graphs.rmat import rmat_edges, rmat_graph
+from repro_torch.graphs.pipeline import BuildConfig, final_store_path, run_pipeline
+from repro_torch.graphs.rmat import rmat_edge_chunks, rmat_edges, rmat_graph
 from repro_torch.graphs.store import (
     GraphStore,
     StoreChecksumError,
@@ -44,6 +45,10 @@ __all__ = [
     "permute_graph",
     "random_order",
     "unpermute_ranks",
+    "BuildConfig",
+    "final_store_path",
+    "run_pipeline",
+    "rmat_edge_chunks",
     "rmat_edges",
     "rmat_graph",
     "GraphStore",

@@ -19,6 +19,7 @@ Directory layout::
       weights.bin      # (m,) float64, optional
       bias.bin         # (n,) float64, optional
       perm.bin         # (n,) int64, optional — perm[original] = stored id
+      LAYOUT.json      # optional: the build pipeline's partition bounds
 
 ``META.json`` is written last and atomically (tmp + ``os.replace``), so its
 presence marks a complete store: an interrupted write leaves no manifest.
@@ -30,16 +31,21 @@ Every array file carries a CRC-32 in the manifest; ``verify=True`` on load
 back to original ids as ``pr_original = pr_stored[perm]``
 (:func:`repro_torch.graphs.reorder.unpermute_ranks`).
 
-The out-of-core build pipeline's pieces of the reference module (spill
-chunks, their k-way merge, the ``LAYOUT.json`` accessors) are not here:
-nothing in the port builds a store in stages yet.
+The module also holds the external-sort spill machinery that the build
+pipeline's streaming stages (:mod:`repro_torch.graphs.pipeline`) share:
+bounded edge chunks sorted by ``(dst, src)`` on disk
+(:func:`write_spill_chunk`, the reference's structured dtype, so the
+files are its bytes) and a k-way merge (:func:`merge_spill_chunks`) that
+holds at most one ``block`` of rows per live chunk, never the whole edge
+list.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import zlib
-from typing import BinaryIO, Optional, Union
+from typing import BinaryIO, Optional, Sequence, Union
 
 import numpy as np
 
@@ -48,6 +54,7 @@ from repro_torch.graphs.csr import Graph
 STORE_FORMAT = "repro-graph-store"
 STORE_VERSION = 1
 META_FILE = "META.json"
+LAYOUT_FILE = "LAYOUT.json"
 
 # Canonical dtypes of the format (little-endian, fixed for portability).
 _DTYPES = {
@@ -122,7 +129,8 @@ class StoreWriter:
     """Streaming store writer: append dst-sorted edge blocks, then finalize.
 
     Blocks must arrive in global (dst, src) order, as
-    :meth:`repro_torch.graphs.csr.Graph.edge_chunks` yields them.  The
+    :meth:`repro_torch.graphs.csr.Graph.edge_chunks` and
+    :func:`merge_spill_chunks` give them.  The
     writer counts per-vertex dst/src occurrences as it goes (O(n) RAM), so
     ``finalize`` can derive ``in_ptr``/``out_degree`` without a second
     pass; callers with authoritative arrays (a decomposition core's
@@ -323,6 +331,18 @@ class GraphStore:
             return None
         return np.asarray(self._array("perm", mmap=False))
 
+    def layout(self) -> Optional[dict]:
+        """The partition bounds written by the build pipeline's layout stage
+        (``None`` when that stage has not run)."""
+        path = os.path.join(self.path, LAYOUT_FILE)
+        if not os.path.isfile(path):
+            return None
+        with open(path, encoding="utf-8") as f:
+            return json.load(f)
+
+    def write_layout(self, layout: dict) -> None:
+        _atomic_json(os.path.join(self.path, LAYOUT_FILE), layout)
+
     def nbytes(self) -> int:
         """Total bytes of the array shards on disk."""
         return sum(
@@ -334,3 +354,144 @@ def load_graph(path: PathLike, mmap: bool = True,
                verify: bool = False) -> Graph:
     """One-call load: store directory → (memmap-backed) :class:`Graph`."""
     return GraphStore(path).graph(mmap=mmap, verify=verify)
+
+
+# ---------------------------------------------------------------------------
+# External-sort spill chunks + k-way merge (shared by the pipeline stages)
+# ---------------------------------------------------------------------------
+
+
+def _spill_dtype(weighted: bool) -> np.dtype:
+    fields = [("dst", "<i4"), ("src", "<i4")]
+    if weighted:
+        fields.append(("w", "<f8"))
+    return np.dtype(fields)
+
+
+def write_spill_chunk(path: PathLike, src: np.ndarray, dst: np.ndarray,
+                      weights: Optional[np.ndarray] = None,
+                      dedupe: bool = False) -> dict:
+    """Sort one edge chunk by ``(dst, src)`` and write it as a structured
+    ``.npy`` spill file (atomically).  Returns ``{"rows", "crc32"}``, the
+    pipeline's per-chunk resume record.
+
+    ``dedupe`` drops duplicate ``(src, dst)`` pairs within the chunk (the
+    merge drops those across chunks); weighted chunks refuse it, as their
+    parallel edges are distinct contributions."""
+    if dedupe and weights is not None:
+        raise ValueError("dedupe of weighted edges is ambiguous")
+    # the stable order of np.lexsort((src, dst)) for any int32 pair, from
+    # one int64 key: half lexsort's time on chunks of 2**21 edges
+    key = dst.astype(np.int64) * (1 << 32) + (src.astype(np.int64) + (1 << 31))
+    order = np.argsort(key, kind="stable")
+    rec = np.empty(src.shape[0], dtype=_spill_dtype(weights is not None))
+    rec["src"] = src[order]
+    rec["dst"] = dst[order]
+    if weights is not None:
+        rec["w"] = weights[order]
+    if dedupe and rec.shape[0]:
+        keep = np.r_[True, (rec["dst"][1:] != rec["dst"][:-1])
+                     | (rec["src"][1:] != rec["src"][:-1])]
+        rec = rec[keep]
+    path = str(path)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:  # np.save on a handle: no ".npy" suffixing
+        np.save(f, rec)
+    os.replace(tmp, path)
+    return {"rows": int(rec.shape[0]), "crc32": _file_crc32(path)}
+
+
+class _SpillStream:
+    """Block-buffered reader over one sorted spill chunk (memmap-backed)."""
+
+    def __init__(self, path: str, n: int, block: int):
+        self.arr = np.load(path, mmap_mode="r")
+        self.n = n
+        self.block = block
+        self.pos = 0
+        self.buf: Optional[np.ndarray] = None  # the resident block
+        self.keys: Optional[np.ndarray] = None
+
+    def refill(self) -> bool:
+        """Ensure a non-empty buffer; False when the chunk is exhausted."""
+        if self.buf is not None and self.buf.shape[0]:
+            return True
+        if self.pos >= self.arr.shape[0]:
+            return False
+        end = min(self.pos + self.block, self.arr.shape[0])
+        self.buf = np.asarray(self.arr[self.pos:end])
+        self.keys = self.buf["dst"].astype(np.int64) * self.n + self.buf["src"]
+        self.pos = end
+        return True
+
+    def take_upto(self, bound: int) -> np.ndarray:
+        cut = int(np.searchsorted(self.keys, bound, side="right"))
+        out, self.buf = self.buf[:cut], self.buf[cut:]
+        self.keys = self.keys[cut:]
+        return out
+
+
+def merge_spill_chunks(
+    chunk_files: Sequence[PathLike],
+    n: int,
+    writer: StoreWriter,
+    dedupe: bool = False,
+    block: int = 1 << 16,
+) -> None:
+    """K-way merge of sorted spill chunks into ``writer``, vectorized.
+
+    Each round holds at most one ``block`` per live chunk, takes every
+    buffered edge whose key is at most the smallest buffer maximum (nothing
+    still on disk sorts before those), sorts the pool, optionally dedupes
+    it, and appends it: peak memory O(len(chunk_files) × block), whatever
+    the edge count.  ``dedupe`` drops a ``(src, dst)`` key seen before,
+    across chunk boundaries too (the last key emitted carries over)."""
+    streams = [_SpillStream(str(f), n, block) for f in chunk_files]
+    last_key = None
+    while True:
+        streams = [s for s in streams if s.refill()]
+        if not streams:
+            return
+        bound = min(int(s.keys[-1]) for s in streams)
+        parts = [s.take_upto(bound) for s in streams]
+        pool = np.concatenate([p for p in parts if p.shape[0]])
+        keys = pool["dst"].astype(np.int64) * n + pool["src"]
+        order = np.argsort(keys, kind="stable")
+        pool, keys = pool[order], keys[order]
+        if dedupe and keys.shape[0]:
+            keep = np.r_[True, keys[1:] != keys[:-1]]
+            if last_key is not None:
+                keep &= keys != last_key
+            pool, keys = pool[keep], keys[keep]
+        if keys.shape[0]:
+            last_key = int(keys[-1])
+            writer.append(pool["src"], pool["dst"],
+                          pool["w"] if "w" in pool.dtype.names else None)
+
+
+@dataclasses.dataclass
+class SpillSet:
+    """One stage's spill directory: deterministic chunk file names and the
+    per-chunk resume check (the file exists and its CRC is the record's)."""
+
+    dir: str
+
+    def __post_init__(self):
+        os.makedirs(self.dir, exist_ok=True)
+
+    def chunk_path(self, idx: int) -> str:
+        return os.path.join(self.dir, f"chunk_{idx:06d}.npy")
+
+    def valid(self, idx: int, record: Optional[dict]) -> bool:
+        """True when chunk ``idx`` is on disk and matches its resume record,
+        so the pipeline need not write it again."""
+        path = self.chunk_path(idx)
+        if record is None or not os.path.isfile(path):
+            return False
+        return _file_crc32(path) == record["crc32"]
+
+    def cleanup(self) -> None:
+        if os.path.isdir(self.dir):
+            for f in os.listdir(self.dir):
+                os.unlink(os.path.join(self.dir, f))
+            os.rmdir(self.dir)

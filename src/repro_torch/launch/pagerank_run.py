@@ -32,19 +32,25 @@ on the updated graph, stale cached answers are dropped):
 ``--local-sweeps`` and ``--send-fraction`` reach the ``distributed_*``
 variants.
 
-``--store DIR`` solves a graph store (:mod:`repro_torch.graphs.store`)
-memmap-backed instead of ``--dataset``; a reordered store solves in its
-stored order and the ranks, L1 and top-5 are reported in original vertex
-ids.  ``--ckpt PATH`` writes the ranks as a
-:class:`repro_torch.core.runtime.SolverCheckpoint` (``PATH.npz``) with the
-partition count the bundle was built with:
+The ``build`` subcommand runs the out-of-core build pipeline
+(:mod:`repro_torch.graphs.pipeline`) on the host: an R-MAT graph
+(``--scale``) or a Table-1 surrogate (``--dataset``) streamed to disk in
+chunks of ``--chunk-edges``, reordered (``--order``), laid out, and
+resumable: run it again with the same ``--out`` after an interruption, or
+with ``--stages`` to run a subset:
 
-    ... -m repro_torch.launch.pagerank_run --store build/ws \
-        --variant blocked_nosync --handle-dangling --ckpt build/ws_pr
+    ... -m repro_torch.launch.pagerank_run build --dataset socLiveJournal1 \
+        --scale-down 1 --order bfs --out build/lj
 
-The reference launcher's ``build`` subcommand (the out-of-core build
-pipeline, whose output directories ``--store`` also takes there) is not
-ported yet; asking for it raises.
+``--store DIR`` solves a graph store (:mod:`repro_torch.graphs.store`),
+or the final store of a ``build`` directory, memmap-backed instead of
+``--dataset``; a reordered store solves in its stored order and the
+ranks, L1 and top-5 are reported in original vertex ids.  ``--ckpt PATH``
+writes the ranks as a :class:`repro_torch.core.runtime.SolverCheckpoint`
+(``PATH.npz``) with the partition count the bundle was built with:
+
+    ... -m repro_torch.launch.pagerank_run --store build/lj \
+        --variant blocked_nosync --handle-dangling --ckpt build/lj_pr
 """
 from __future__ import annotations
 
@@ -321,6 +327,79 @@ def serve(argv) -> dict:
     return report
 
 
+def build(argv) -> dict:
+    """The ``build`` subcommand: run or resume the build pipeline, print
+    the final store and its layout, and return ``out``, ``store`` (the
+    final store's path), ``stages`` (each stage's info, with ``wall_s``
+    and ``skipped``), ``n``, ``m`` and ``nbytes`` (the store's array
+    files)."""
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.pagerank_run build")
+    ap.add_argument("--out", required=True,
+                    help="pipeline directory (PIPELINE.json, raw/ and "
+                         "reordered/ stores); run again with the same --out "
+                         "to resume an interrupted build")
+    src = ap.add_mutually_exclusive_group()
+    src.add_argument("--scale", type=int, default=None,
+                     help="R-MAT scale: 2**scale vertices")
+    src.add_argument("--dataset", choices=tuple(DATASETS), default=None,
+                     help="build a Table-1 surrogate instead of a pure R-MAT")
+    ap.add_argument("--scale-down", type=float, default=1.0,
+                    help="dataset surrogate scale-down (with --dataset)")
+    ap.add_argument("--avg-degree", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--chunk-edges", type=int, default=1 << 21,
+                    help="edges per streamed chunk: the peak-memory knob")
+    ap.add_argument("--order", choices=("none", "bfs", "degree", "random"),
+                    default="bfs")
+    ap.add_argument("--no-dedupe", action="store_true",
+                    help="keep duplicate edges (R-MAT builds dedupe by "
+                         "default, dataset surrogates never do)")
+    ap.add_argument("--threads", type=int, default=56,
+                    help="partitions of the layout stage's bounds")
+    ap.add_argument("--block", type=int, default=256,
+                    help="recorded in PIPELINE.json for parity with the "
+                         "reference; the port's layout has no tiles")
+    ap.add_argument("--tile-cap", type=int, default=1024,
+                    help="recorded in PIPELINE.json for parity with the "
+                         "reference; the port's layout has no tiles")
+    ap.add_argument("--stages", default=None,
+                    help="comma-separated subset of generate,reorder,layout "
+                         "(default: all)")
+    args = ap.parse_args(argv)
+    if args.scale is None and args.dataset is None:
+        ap.error("one of --scale / --dataset is required")
+
+    import math
+
+    from repro_torch.graphs.datasets import _dataset_rmat_params
+    from repro_torch.graphs.pipeline import BuildConfig, run_pipeline
+    from repro_torch.graphs.store import GraphStore
+
+    common = dict(seed=args.seed, chunk_edges=args.chunk_edges, order=args.order,
+                  threads=args.threads, block=args.block, tile_cap=args.tile_cap)
+    if args.dataset is not None:
+        n, m, (a, b, c) = _dataset_rmat_params(args.dataset, args.scale_down)
+        cfg = BuildConfig(scale=max(6, math.ceil(math.log2(n))), n_edges=m,
+                          fold_n=n, a=a, b=b, c=c, dedupe=False, **common)
+    else:
+        cfg = BuildConfig(scale=args.scale, avg_degree=args.avg_degree,
+                          dedupe=not args.no_dedupe, **common)
+    stages = args.stages.split(",") if args.stages else None
+    res = run_pipeline(args.out, cfg, stages=stages)
+    store = GraphStore(res["store"])
+    print(f"store: {store.path}  n={store.n} m={store.m} order={store.order} "
+          f"bytes={store.nbytes():,}")
+    lay = store.layout()
+    if lay:
+        edges = np.asarray(lay["partition_edges"])
+        print(f"layout: threads={lay['threads']} partitions={edges.size} "
+              f"partition_edges max={int(edges.max())} mean={edges.mean():.1f}")
+    return dict(out=res["out"], store=store.path, n=store.n, m=store.m,
+                nbytes=store.nbytes(),
+                stages={k: {**v, "skipped": v.get("skipped", False)}
+                        for k, v in res["stages"].items()})
+
+
 def run(argv=None) -> dict:
     """Parse ``argv``, solve, print the report, and return it as a dict
     (``variant``, ``n``, ``m``, ``device``, ``plan``: the plan's stats or
@@ -328,15 +407,12 @@ def run(argv=None) -> dict:
     ``oracle_iterations``, ``top5``, ``launches``, ``pr``: the ranks, in
     original ids for a reordered ``--store``; with ``--ckpt`` also
     ``ckpt``, the file written, and ``ckpt_p``); ``--list`` prints the
-    registry and returns ``{}``; ``query ...`` and ``serve ...`` return
-    :func:`query`'s and :func:`serve`'s reports."""
+    registry and returns ``{}``; ``build ...``, ``query ...`` and
+    ``serve ...`` return :func:`build`'s, :func:`query`'s and
+    :func:`serve`'s reports."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["build"]:
-        raise NotImplementedError(
-            "build is not ported yet: the out-of-core build pipeline "
-            "comes with slice 12 of the port; the launcher runs the global "
-            "solve (from --dataset or a --store) and the query and serve "
-            "subcommands")
+        return build(argv[1:])
     if argv[:1] == ["query"]:
         return query(argv[1:])
     if argv[:1] == ["serve"]:
@@ -360,8 +436,9 @@ def run(argv=None) -> dict:
                     help="redistribute dangling mass uniformly (all variants)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--store", default=None, metavar="DIR",
-                    help="solve this graph store memmap-backed instead of "
-                         "--dataset; ranks are reported in original vertex ids")
+                    help="solve this graph store, or a build directory's final "
+                         "store, memmap-backed instead of --dataset; ranks are "
+                         "reported in original vertex ids")
     ap.add_argument("--ckpt", default=None, metavar="PATH",
                     help="write the ranks as a SolverCheckpoint to PATH.npz")
     ap.add_argument("--list", action="store_true",
@@ -384,14 +461,16 @@ def run(argv=None) -> dict:
 
     perm = None
     if args.store:
+        from repro_torch.graphs.pipeline import final_store_path
         from repro_torch.graphs.store import GraphStore, StoreError, is_store
 
-        if not is_store(args.store):
+        path = args.store if is_store(args.store) else final_store_path(args.store)
+        if not is_store(path):
             raise StoreError(
-                f"{args.store} is not a graph store (no META.json); solving "
-                f"a build pipeline's directory comes with slice 12 of the "
-                f"port: pass the store directory itself")
-        store = GraphStore(args.store)
+                f"{args.store} is neither a graph store nor a build directory "
+                f"with a finished store (no META.json there, nor under its "
+                f"raw/ or reordered/)")
+        store = GraphStore(path)
         g = store.graph(mmap=True)
         perm = store.perm()
         print(f"store {store.path}: n={g.n} m={g.m} order={store.order} (memmap)")

@@ -963,3 +963,25 @@ def test_blocked_graph_from_a_memmap_store_on_card(cuda, tmp_path, weighted):
                        threshold=1e-8)
     assert launch_counts()["gs_pass"] == ra.iterations + rb.iterations
     assert ra.iterations == rb.iterations and torch.equal(ra.pr, rb.pr)
+
+
+def test_bfs_build_solved_on_card_equals_cpu(cuda, tmp_path):
+    """A small BFS-ordered build (the out-of-core pipeline) solved from its
+    memmap by blocked_nosync on the card takes the CPU twin's passes, one
+    gs_pass launch each, and its ranks within 1e-6 L1 (float32 sums in
+    another order)."""
+    from repro_torch.graphs import BuildConfig, GraphStore, run_pipeline
+
+    cfg = BuildConfig(scale=12, avg_degree=8, seed=3, chunk_edges=5000,
+                      order="bfs", threads=8)
+    res = run_pipeline(tmp_path / "b", cfg, log=lambda m: None)
+    g = GraphStore(res["store"]).graph(mmap=True)
+    assert g.is_memmap
+    kw = dict(threshold=1e-7, handle_dangling=True)
+    reset_launch_counts()
+    card = solve_variant("blocked_nosync", g, device=cuda, **kw)
+    assert launch_counts()["gs_pass"] == card.iterations
+    cpu = solve_variant("blocked_nosync", g, device="cpu", **kw)
+    assert card.iterations == cpu.iterations
+    flat = lambda pr: pr.reshape(-1)[:g.n].double().cpu().numpy()  # noqa: E731
+    assert l1_norm(flat(card.pr), flat(cpu.pr)) <= 1e-6

@@ -3,7 +3,8 @@ scripts import neither JAX nor anything of the reference package ``repro``
 (``repro_torch`` is the port).
 
 Every ``.py`` under ``src/repro_torch/``, ``chip_smoke.py`` and the
-card scripts (``scripts/first_solve.py``, ``scripts/flash_ablation.py``,
+card scripts (``scripts/build_rss.py``, ``scripts/first_solve.py``,
+``scripts/flash_ablation.py``,
 ``scripts/ppr_sum_accuracy.py``, ``scripts/spmv_ablation.py``,
 ``scripts/spmv_times.py``) is parsed with ``ast`` — nothing is imported
 or run.
@@ -17,8 +18,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [
     ROOT / "scripts" / name
-    for name in ("first_solve.py", "flash_ablation.py", "ppr_sum_accuracy.py",
-                 "spmv_ablation.py", "spmv_times.py")]
+    for name in ("build_rss.py", "first_solve.py", "flash_ablation.py",
+                 "ppr_sum_accuracy.py", "spmv_ablation.py", "spmv_times.py")]
 
 
 def forbidden_imports(tree: ast.AST) -> list[str]:
@@ -80,4 +81,9 @@ def test_the_audit_covers_the_distributed_modules(module):
 @pytest.mark.parametrize("module", [
     "graphs/store.py", "graphs/datasets.py", "core/runtime.py", "device.py"])
 def test_the_audit_covers_the_store_and_runtime_modules(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", ["graphs/pipeline.py", "graphs/rmat.py"])
+def test_the_audit_covers_the_build_pipeline_modules(module):
     assert ROOT / "src" / "repro_torch" / module in FILES

@@ -16,6 +16,8 @@ residual sits within a few ulps of the ranks (about 5e-10 at rank 4e-3),
 so whether the last iteration stops is decided by rounding; at 1e-7 the
 trajectory is well clear of it.  The fixed-point tests run at 1e-8.
 """
+import re
+
 import jax  # noqa: F401
 import numpy as np
 import pytest
@@ -257,21 +259,36 @@ def test_launcher_runs_the_solve_path_on_cpu(capsys):
     assert "blocked_nosync_opt" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--store={missing}"],
-                                  ["--store", "{build}", "--ckpt", "{ckpt}",
-                                   "--device", "cpu"],
-                                  ["build"], ["--store", "{build}"],
-                                  ["build", "--out", "{build}"]])
-def test_launcher_rejects_later_slices(argv, tmp_path):
-    # the build pipeline (the `build` subcommand, and --store on its output
-    # directories, which hold a store below them) comes with slice 12;
-    # --store on a store and --ckpt run since slice 11
+@pytest.mark.parametrize("argv,outcome", [
+    (["--store={missing}"], "store error"),
+    (["--store", "{built}", "--ckpt", "{ckpt}", "--device", "cpu"], "solved"),
+    (["build"], "usage"),
+    (["--store", "{build}"], "store error"),
+    (["build", "--out", "{build}"], "usage")],
+    ids=["missing-path", "build-dir-ckpt", "build-alone", "empty-raw", "build-out-no-source"])
+def test_launcher_takes_build_directories_and_refuses_what_is_none(argv, outcome,
+                                                                    tmp_path):
+    # since the build pipeline: --store takes a build directory's final
+    # store; a path that is neither a store nor a build directory with one
+    # (missing, or an empty raw/) raises StoreError naming it; build needs
+    # --out and one of --scale / --dataset (argparse exits 2)
     (tmp_path / "build" / "raw").mkdir(parents=True)
     paths = dict(missing=tmp_path / "missing", build=tmp_path / "build",
-                 ckpt=tmp_path / "pr")
+                 built=tmp_path / "built", ckpt=tmp_path / "pr")
     argv = [a.format(**paths) for a in argv]
-    with pytest.raises((NotImplementedError, StoreError), match="slice 12"):
-        pagerank_run.main(argv)
+    if outcome == "solved":
+        assert pagerank_run.main(["build", "--scale", "8", "--out", str(paths["built"])]) == 0
+        rep = pagerank_run.run(argv)
+        assert rep["n"] == 256 and (tmp_path / "pr.npz").exists()
+        return
+    if outcome == "store error":
+        path = str(paths["missing"] if "missing" in argv[0] else paths["build"])
+        with pytest.raises(StoreError, match=re.escape(f"{path} is neither a graph store")):
+            pagerank_run.main(argv)
+    else:
+        with pytest.raises(SystemExit) as exc:
+            pagerank_run.main(argv)
+        assert exc.value.code == 2
     assert not (tmp_path / "pr.npz").exists()
 
 

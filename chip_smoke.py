@@ -7,10 +7,23 @@ Phases, one or more lines each; any failure exits non-zero:
 
 1. device   — the card's name, and its name and power limit from nvidia-smi;
 2. build    — nvcc builds the kernels from src/repro_torch/kernels/*/csrc,
-               one process per source, started together, and prints each
-               kernel's registers and spills; for flash_attention's two
-               instantiations (bf16 on the tensor cores, f32 on the CUDA
-               cores) also shared memory and resident CTAs per SM;
+               one process per source, started together;
+   analysis — the port's static-analysis passes on the card
+               (repro_torch.analysis.collect("cuda")): one line a kernel
+               (shared memory against the 232,448 B a CTA may opt into,
+               the largest block of gs_pass unweighted and weighted and of
+               gs_pass_multi, and the built library's registers, spill
+               bytes, static and dynamic shared memory and CTAs an SM of
+               every device function; flash_attention's lines name the
+               instantiation: bf16 on the tensor cores, f32 on the CUDA
+               cores); the mirror of each layout against the library's
+               gs_pass_plan and gs_pass_multi_smem_bytes at every block
+               from 1 to one past the largest; every non-numpy registry
+               variant and both PPREngine backends traced on the tiny
+               R-MAT graph, host reads per iteration and uploads per solve
+               against their contract; fails on any unsuppressed finding,
+               and where host-reads is suppressed, on any read past the
+               one design read;
 3. kernels  — on the full-size webStanford surrogate (n=281,903,
                m=2,312,497) at block 256, unweighted and weighted+biased,
                each kernel is held against its plain PyTorch version and
@@ -556,6 +569,44 @@ def whole_block_check(tag, bg, pr, params, dev) -> float:
               f"entry_rel={ent:.3e} (bound {KERNEL_RTOL:g}); frozen lanes "
               f"bit-identical; ms={ms:.4f} (device, by {by})", flush=True)
     return worst
+
+
+def analysis_phase() -> None:
+    """Run every pass of ``repro_torch.analysis`` on the card and print its
+    lines; any unsuppressed finding fails the phase."""
+    from repro_torch.analysis import collect, unsuppressed
+    from repro_torch.core.solver import get_variant, list_variants
+
+    findings, reports = collect("cuda")
+    kernels = reports["kernels"]
+    for name, rep in kernels.items():
+        design = (f" [{flash_design(name.split()[1] == 'bf16')}]"
+                  if name.startswith("flash_attention") else "")
+        print(f"analysis: {rep.line()}{design}", flush=True)
+    print(f"analysis: layout-drift: the mirror against the library at blocks 1 to "
+          f"{kernels['gs_pass'].largest_block + 1} (gs_pass), 1 to "
+          f"{kernels['gs_pass weighted'].largest_block + 1} (weighted), 1 to "
+          f"{kernels['gs_pass_multi'].largest_block + 1} (gs_pass_multi): "
+          f"{sum(f.check == 'layout-drift' for f in findings)} findings", flush=True)
+    for rep in reports["trace"]:
+        print(f"analysis: {rep.line()}", flush=True)
+    for f in findings:
+        state = f"SUPPRESSED ({f.reason})" if f.suppressed else f"FINDING: {f.message}"
+        print(f"analysis: [{f.pass_name}] {f.target}: {f.check} {state}", flush=True)
+    traced = {r.target for r in reports["trace"]}
+    want = {n for n in list_variants() if get_variant(n).backend != "numpy"}
+    want |= {"serving_torch", "serving_cuda"}
+    check(traced == want, f"analysis: traced {sorted(traced)}, expected {sorted(want)}")
+    for rep in reports["trace"]:
+        # a suppressed host-reads finding covers the sweep-count read alone
+        design = any(f.suppressed and f.check == "host-reads" for f in rep.findings)
+        check(rep.reads <= rep.contract * rep.iterations + design,
+              f"analysis: {rep.line()}: reads past the contract and the design read")
+    check(all(rep.card for rep in kernels.values()),
+          "analysis: a kernel has no report from the built library")
+    hard = unsuppressed(findings)
+    check(not hard, f"analysis: {len(hard)} unsuppressed finding(s): "
+          + "; ".join(f"{f.target} {f.check}: {f.message}" for f in hard))
 
 
 def kernel_phase(g, gw, dev):
@@ -2941,18 +2992,11 @@ def main() -> int:
     for lib in libs:
         lib.load()
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f}s", flush=True)
-    for path, log in built:
+    for path, _ in built:
         print(f"build: {os.path.relpath(path, ROOT)}")
-        for line in log.splitlines():
-            if any(k in line for k in ("Function properties", "registers", "spill")):
-                print(f"build: {line.strip()}")
-    for dh in (32, 64, 128):
-        for bf16 in (True, False):
-            info = flash_build.kernel_info(dh, bf16)
-            print(f"build: flash_attention {flash_design(bf16)}, dh {dh}: "
-                  f"{info['registers']} registers, {info['spill_bytes']} spill bytes a "
-                  f"thread, {info['smem_bytes']} B dynamic shared memory a CTA, "
-                  f"{info['ctas_per_sm']} CTAs an SM", flush=True)
+
+    with phase_wall("analysis"):
+        analysis_phase()
 
     g = make_dataset("webStanford", scale_down=1)
     gw = weighted_graph(g)

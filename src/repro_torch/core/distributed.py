@@ -26,7 +26,9 @@ loop enqueues each shard's sweeps on its device in turn.  Launches are
 asynchronous, so the cards of a multi-GPU mesh sweep at once, and each
 round ends in one host read of the largest residual, the reference's
 ``pmax``.  The exchange (``all_gather``) concatenates every shard's ranks
-onto each distinct device of the mesh.
+onto each distinct device of the mesh.  Each exchange adds one to its
+count (:func:`exchange_counts`): on a mesh whose shards share one device
+no copy runs, so the count is how a trace sees the collective.
 
 Every shard's sweep is the CUDA kernel ``spmv_csr_acc`` over the shard's
 rows (:func:`repro_torch.kernels.spmv.spmv_csr_rows`), its plain version
@@ -62,8 +64,25 @@ __all__ = [
     "ShardMesh",
     "distributed_pagerank",
     "distributed_pagerank_topk",
+    "exchange_counts",
+    "reset_exchange_counts",
     "solver_mesh",
 ]
+
+# Cross-shard exchanges since the last reset: the whole rank vector
+# (``all_gather``, the barrier and stale rounds) and the top-k deltas
+# (``topk``, the perforated rounds), one a round each.
+_EXCHANGES = {"all_gather": 0, "topk": 0}
+
+
+def exchange_counts() -> dict[str, int]:
+    """Exchanges of each kind since the last reset."""
+    return dict(_EXCHANGES)
+
+
+def reset_exchange_counts() -> None:
+    for name in _EXCHANGES:
+        _EXCHANGES[name] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,6 +266,7 @@ def distributed_pagerank(
     while err > thr and rounds < max_rounds:
         # the exchange (all_gather): every shard's ranks onto each device
         full = {dev: torch.cat([x.to(dev) for x in locals_]) for dev in ops.replicas}
+        _EXCHANGES["all_gather"] += 1
         dmass = {dev: d * torch.sum(full[dev] * rep.dangling) / n
                  for dev, rep in ops.replicas.items()} if handle_dangling else {}
         for i, s in enumerate(ops.shards):
@@ -326,6 +346,7 @@ def distributed_pagerank_topk(
         for dev, vec in snap.items():
             vec[torch.cat([x.to(dev) for x in g_idx])] = torch.cat(
                 [x.to(dev) for x in g_val])
+        _EXCHANGES["topk"] += 1
         # 2. sweeps against the snapshot with the shard's fresh ranks in
         # it; the dangling mass is taken from that view before the first
         for i, s in enumerate(ops.shards):

@@ -1,5 +1,6 @@
 """Load the CUDA kernels of ``csrc/spmv.cu``, built at first use by
-:mod:`repro_torch.kernels.nvcc`, with their C signatures declared."""
+:mod:`repro_torch.kernels.nvcc`, with their C signatures declared, and
+report what the built library launches (:func:`kernel_info`)."""
 from __future__ import annotations
 
 import ctypes
@@ -9,6 +10,11 @@ import pathlib
 from repro_torch.kernels import nvcc
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "spmv.cu"
+# The device functions of csrc/spmv.cu in spmv_kernel_info's numbering: the
+# merge-path SpMV and its join of rows cut between CTAs (spmv_csr_acc),
+# gs_pass's prep and walk, gs_pass_multi's scaling and walk.
+KERNELS = ("spmv_csr_acc", "spmv_carry", "gs_prep", "gs_pass", "scale_state",
+           "gs_pass_multi")
 
 
 def build() -> tuple[pathlib.Path, str]:
@@ -40,4 +46,21 @@ def load(path: pathlib.Path | None = None) -> ctypes.CDLL:
     lib.gs_pass_multi_smem_bytes.restype = ctypes.c_size_t
     lib.smem_per_block_optin.argtypes = [i]
     lib.smem_per_block_optin.restype = i
+    lib.spmv_kernel_info.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.spmv_kernel_info.restype = i
     return lib
+
+
+def kernel_info(kernel: str, block: int = 256, weighted: bool = False) -> dict[str, int]:
+    """Registers, local (spill) bytes a thread, static and dynamic shared
+    memory a CTA, resident CTAs an SM and threads a CTA of ``kernel`` (one
+    of :data:`KERNELS`) as launched at ``block`` rows (``weighted`` picks
+    gs_pass's streams), as the built library reports them on the current
+    card."""
+    out = (ctypes.c_int * 6)()
+    err = load().spmv_kernel_info(KERNELS.index(kernel), block, int(weighted), out)
+    if err != 0:
+        raise RuntimeError(f"spmv_kernel_info({kernel}, block={block}) failed "
+                           f"with cudaError {err}")
+    return dict(zip(("registers", "spill_bytes", "static_smem_bytes", "smem_bytes",
+                     "ctas_per_sm", "threads"), out))

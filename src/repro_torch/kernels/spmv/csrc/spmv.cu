@@ -1569,6 +1569,63 @@ static cudaError_t launch_multi(float* pr, float* q, const float* inv_out, const
   return cudaErrorInvalidConfiguration;
 }
 
+// info[0..5] of one kernel as launched: registers, local (spill) bytes a
+// thread, static and dynamic shared memory a CTA, resident CTAs an SM and
+// threads a CTA
+template <typename K>
+static int kernel_info(K* kernel, int threads, size_t smem, int* info) {
+  cudaFuncAttributes attr;
+  int ctas = 0;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads, smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = static_cast<int>(attr.sharedSizeBytes);
+  info[3] = static_cast<int>(smem);
+  info[4] = ctas;
+  info[5] = threads;
+  return 0;
+}
+
+// What a launch at `block` rows (`weighted` for gs_pass's streams) runs, as
+// kernel_info reports it into info[0..5]: kernel 0 spmv_csr_acc_kernel, 1
+// spmv_carry_kernel, 2 gs_prep_kernel, 3 gs_pass_kernel (the dynamic shared
+// memory of gs_pass_plan on the current card), 4 scale_state_kernel, 5
+// gs_pass_multi_kernel (a CTA's staging without a cluster, its most).
+// Returns a cudaError; a kernel out of range, or a block that gs_pass_plan
+// cannot stage, is cudaErrorInvalidValue.
+extern "C" int spmv_kernel_info(int kernel, int block, int weighted, int* info) {
+  switch (kernel) {
+    case 0:
+      return kernel_info(spmv_csr_acc_kernel, kCsrThreads, 0, info);
+    case 1:
+      return kernel_info(spmv_carry_kernel, 256, 0, info);
+    case 2:
+      return kernel_info(gs_prep_kernel, 256, 0, info);
+    case 3: {
+      int device = 0;
+      cudaError_t err = cudaGetDevice(&device);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const int limit = smem_per_block_optin(device);
+      if (limit < 0) return -limit;
+      int k = 0, d_stages = 0;
+      const int bytes = gs_pass_plan(block, weighted, limit, &k, &d_stages);
+      if (bytes <= 0) return static_cast<int>(cudaErrorInvalidValue);
+      return kernel_info(gs_pass_kernel, kGsThreads, bytes, info);
+    }
+    case 4:
+      return kernel_info(scale_state_kernel, 256, 0, info);
+    case 5:
+      return kernel_info(gs_pass_multi_kernel, kMultiThreads, multi_smem_bytes(block, 1), info);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // `q` is scratch of twice the state's size: pr * inv_out, the previous
 // pass's and this pass's.
 extern "C" int gs_pass_multi(float* pr, float* q, const float* inv_out,

@@ -10,7 +10,9 @@ float64 oracle, the top-5 vertices, the device and the CUDA kernel launches
 of the solve; a plan-staged variant (``*_sticd``) also prints its plan's
 core size and pruned counts.  The ``ppr_*`` variants solve one uniform
 teleport row, the global question.  ``--device cpu`` runs the same path on
-the CPU (the kernels' plain versions).  ``--list`` prints the registry.
+the CPU (the kernels' plain versions).  ``--list`` prints the registry
+with each variant's contract audit (``repro_torch.analysis.contracts``):
+✓, or the checks it fails.
 
 The ``query`` subcommand answers one personalized-PageRank query as a
 top-k, by forward push on the host (``--solver push``) or by
@@ -73,6 +75,10 @@ from repro_torch.core.solver import (
 from repro_torch.graphs import DATASETS, make_dataset
 from repro_torch.kernels.spmv import launch_counts
 from repro_torch.serving.runtime import ServingRuntime
+
+# dst-block size (the Gauss–Seidel unit) of the blocked variants
+DEFAULT_BLOCK = 256
+
 
 def _parse_seeds(spec: str) -> tuple[int, ...]:
     """``"7,42"`` → ``(7, 42)``; an empty string → the uniform teleport."""
@@ -423,7 +429,7 @@ def run(argv=None) -> dict:
     ap.add_argument("--variant", choices=list_variants(), default="nosync")
     ap.add_argument("--threads", type=int, default=56)
     ap.add_argument("--threshold", type=float, default=1e-8)
-    ap.add_argument("--block", type=int, default=256,
+    ap.add_argument("--block", type=int, default=DEFAULT_BLOCK,
                     help="blocked: dst-block size (the Gauss–Seidel unit)")
     ap.add_argument("--tile-cap", type=int, default=1024,
                     help="accepted for parity with the reference; the port's "
@@ -444,20 +450,28 @@ def run(argv=None) -> dict:
     ap.add_argument("--list", action="store_true",
                     help="list every registered variant and exit; columns are "
                          "layout (bundle-sharing key), backend (numpy | torch "
-                         "| cuda) and schedule (barrier | nosync | adaptive | "
-                         "sequential)")
+                         "| cuda), schedule (barrier | nosync | adaptive | "
+                         "sequential) and the contract audit (✓, or the failed "
+                         "checks)")
     args = ap.parse_args(argv)
 
     if args.list:
-        header = (f"{'variant':20s} {'layout':12s} {'backend':8s} "
-                  f"{'schedule':10s} description")
+        # the static contract audit's verdict per variant: ✓, or the
+        # failed check keys
+        from repro_torch.analysis.contracts import audit_registry
+
+        audit = audit_registry()
+        header = (f"{'variant':20s} {'layout':18s} {'backend':8s} "
+                  f"{'schedule':10s} {'contract':10s} description")
         print(header)
         print("-" * len(header))
         for name in list_variants():
             v = get_variant(name)
-            print(f"{name:20s} {v.layout:12s} {v.backend:8s} {v.schedule:10s} "
-                  f"{v.description}")
-        return {}
+            flags = ",".join(sorted({f.check for f in audit[name]})) or "✓"
+            print(f"{name:20s} {v.layout:18s} {v.backend:8s} {v.schedule:10s} "
+                  f"{flags:10s} {v.description}")
+        return {"contract": {name: sorted({f.check for f in fs})
+                             for name, fs in audit.items()}}
 
     perm = None
     if args.store:

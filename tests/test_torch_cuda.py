@@ -985,3 +985,66 @@ def test_bfs_build_solved_on_card_equals_cpu(cuda, tmp_path):
     assert card.iterations == cpu.iterations
     flat = lambda pr: pr.reshape(-1)[:g.n].double().cpu().numpy()  # noqa: E731
     assert l1_norm(flat(card.pr), flat(cpu.pr)) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# The static-analysis passes on the card (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+
+def test_kernel_audit_on_card_finds_no_drift_spill_or_overflow(cuda):
+    """The mirror of every kernel's shared-memory layout equals the built
+    library's at every block from 1 to one past the largest (gs_pass both
+    weightings, gs_pass_multi), and every kernel at the path's blocks
+    spills nothing and keeps a CTA resident."""
+    from repro_torch.analysis.kernels import audit
+
+    findings, reports = audit("cuda")
+    assert [f.to_dict() for f in findings] == []
+    for rep in reports.values():
+        assert rep.card, rep.kernel
+        for info in rep.card.values():
+            assert info["spill_bytes"] == 0 and info["ctas_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("block", [8, 256])
+def test_spmv_kernel_info_at_the_paths_blocks(cuda, block, weighted):
+    """spmv_kernel_info reports every device function of csrc/spmv.cu
+    without spills at the launcher's and the trace lint's block; gs_pass's
+    and gs_pass_multi's shared memory are the mirror's."""
+    from repro_torch.analysis import kernels as mirror
+    from repro_torch.kernels.spmv.build import KERNELS, kernel_info, load
+
+    for name in KERNELS:
+        info = kernel_info(name, block, weighted)
+        assert info["spill_bytes"] == 0 and info["ctas_per_sm"] >= 1, (name, info)
+    limit = load().smem_per_block_optin(torch.cuda.current_device())
+    assert kernel_info("gs_pass", block, weighted)["smem_bytes"] == \
+        mirror.gs_pass_plan(block, weighted, limit)[2]
+    assert kernel_info("gs_pass_multi", block)["smem_bytes"] == mirror.multi_smem_bytes(block)
+    assert kernel_info("spmv_csr_acc")["static_smem_bytes"] == mirror.csr_static_smem_bytes()
+
+
+def test_trace_lint_on_card_is_within_every_contract(cuda):
+    """Every non-numpy variant and both engine backends traced on the card:
+    no unsuppressed finding, the adaptive partition schedule's order and
+    skip-set read (a tolist(), unseen on the CPU) counted once a round, the
+    device-counted sweeps read once a solve, and the seeds' teleport row
+    uploaded once a solve."""
+    from repro_torch.analysis import apply_suppressions, unsuppressed
+    from repro_torch.analysis.trace_lint import trace_reports
+
+    reports = {r.target: r for r in trace_reports("cuda")}
+    findings = apply_suppressions([f for r in reports.values() for f in r.findings])
+    assert [f.to_dict() for f in unsuppressed(findings)] == []
+    assert len(reports) == 21
+    r = reports["nosync_adaptive"]
+    assert r.reads == 2 * r.iterations
+    for name in ("nosync", "nosync_opt", "nosync_sticd", "ppr_nosync", "blocked_adaptive"):
+        r = reports[name]
+        assert r.reads == r.contract * r.iterations + 1, r.line()
+    for r in reports.values():
+        assert r.uploads == r.upload_contract == r.target.startswith("ppr_"), r.line()
+    assert reports["blocked"].launches["spmv_csr_acc"] == reports["blocked"].iterations
+    assert reports["serving_cuda"].launches["gs_pass_multi"] == 2

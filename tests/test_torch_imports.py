@@ -87,3 +87,11 @@ def test_the_audit_covers_the_store_and_runtime_modules(module):
 @pytest.mark.parametrize("module", ["graphs/pipeline.py", "graphs/rmat.py"])
 def test_the_audit_covers_the_build_pipeline_modules(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", [
+    "analysis/__init__.py", "analysis/__main__.py", "analysis/findings.py",
+    "analysis/markers.py", "analysis/contracts.py", "analysis/trace_lint.py",
+    "analysis/kernels.py"])
+def test_the_audit_covers_the_analysis_modules(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES

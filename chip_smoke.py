@@ -171,12 +171,18 @@ Phases, one or more lines each; any failure exits non-zero:
 15. flash   — flash_attention against its plain version over the
                reference's test matrix (f32/bf16 x 3 head layouts x
                causal / window 64 / full, s 256, dh 64), ragged and
-               sq != sk lengths, and qwen2-vl-2b's shape (b 2, hq 12,
-               hkv 2, s 4096, dh 128; causal and window 512), every entry
-               within its bound, and in bf16 few entries other than the
-               float32 plain result rounded to bf16; times beside the plain version, SDPA
-               and the bound (and, in bf16, the floor of the kernel's own
-               tensor-core work: P·V as P_TERMS bf16 products);
+               sq != sk lengths (dh 32), and 20 cases at dh 80 (GQA and
+               MHA, causal / window 64 / full, ragged), every entry within
+               its bound, and in bf16 few entries other than the float32
+               plain result rounded to bf16; then at the prefill shapes of
+               qwen2-vl-2b (b 2, hq 12, hkv 2, s 4096, dh 128; causal and
+               window 512), stablelm-3b (b 2, hq 32, hkv 32, s 4096, dh 80)
+               and starcoder2-3b (b 2, hq 24, hkv 2, s 8192, dh 128, window
+               4096, which masks a quarter of the causal pairs), checked
+               and timed beside the plain version, SDPA (with a band mask
+               for a window) and the bound (and, in bf16, the floor of the
+               kernel's own tensor-core work: P·V as P_TERMS bf16
+               products);
 16. prefill — qwen2-vl-2b at full width (1.54 B parameters, bf16, random
                from a seeded generator): forward at b 2, s 4096 launches
                the kernel once per layer (the main path); tokens/s over
@@ -188,7 +194,17 @@ Phases, one or more lines each; any failure exits non-zero:
                finishes (no kernel on this path); then the same requests
                and loop in float32 on the decode phase's weights, every
                token the engine picks held against forward's argmax over
-               the tokens its slot was fed.
+               the tokens its slot was fed;
+19. lm      — phases 16 and 17 for the other dense decoders at their
+               published widths (DENSE_LMS): starcoder2-3b at b 2, s 8192
+               (30 launches, its window of 4096 live), phi3-medium-14b
+               (40 launches; its f32 checks on the first 10 layers, as an
+               f32 copy of all 40 does not fit beside the bf16 model),
+               stablelm-3b (32 launches at dh 80), gemma2-2b at b 1,
+               s 8192 (no launch: softcapped attention takes the plain
+               route, as in the reference; its bf16 error against its f32
+               forward); then serve --preset full for starcoder2-3b and
+               gemma2-2b.
 
 Each phase ends with its host wall on a line ``phase <name>: wall_s=``.
 It then prints one JSON line naming every kernel (its ``timed_by`` says
@@ -298,6 +314,29 @@ LOGIT_RTOL = 1e-4  # f32 logits, kernel vs plain route, entry-wise
 BF16_ERR_RATIO = 1.25  # bf16 kernel route's mean error over the plain route's
 DECODE_STEPS = 128
 DECODE_TOL = 2e-3  # decode vs prefill, the reference test's atol = rtol
+# the kernel's plain version in PLAIN_CHUNK-row q-chunks (as the models'
+# plain route) where one call's float32 scores would pass 4 GiB
+PLAIN_SCORE_BYTES = 4 * 2**30
+PLAIN_CHUNK = 1024
+# the prefill shapes the main paths give flash_attention, checked and timed
+# in the flash phase: (model, (b, hq, hkv, s, dh), windows)
+FLASH_TIMED = (
+    ("qwen2-vl-2b", (LM_BATCH, 12, 2, LM_SEQ, 128), (None, 512)),
+    ("stablelm-3b", (2, 32, 32, 4096, 80), (None,)),
+    ("starcoder2-3b", (2, 24, 2, 8192, 128), (4096,)),
+)
+# the dense decoders after qwen2-vl-2b: (arch, prefill b, s, layers of the
+# float32 checks, None for all)
+DENSE_LMS = (
+    # s 8192: a quarter of the causal (q, k) pairs lie outside its window of 4096
+    ("starcoder2-3b", 2, 8192, None),
+    # a float32 copy of all 40 layers (58.6 GB) does not fit beside the bf16 29.3 GB
+    ("phi3-medium-14b", 2, 4096, 10),
+    ("stablelm-3b", 2, 4096, None),
+    # b 1, s 8192: its local layers' window of 4096 bites; f32 logits are 8.4 GB
+    ("gemma2-2b", 1, 8192, None),
+)
+DENSE_SERVED = ("starcoder2-3b", "gemma2-2b")
 SERVE_TIE = 1e-4  # top-2 logit gap under which either token is greedy's pick
 # The reference's DecompositionPlan of the full webStanford surrogate
 # (host numpy, the same in both packages; tests/test_torch_sticd.py holds
@@ -2598,12 +2637,22 @@ def flash_design(bf16: bool, lib=None) -> str:
     return "f32: FMAs on the CUDA cores"
 
 
-def flash_ref(q, k, v, causal, window):
-    """The plain version's float32 result on ``q, k, v`` cast up."""
+def plain_attention(q, k, v, causal, window):
+    """The kernel's plain version on ``q, k, v`` in their dtype; in
+    PLAIN_CHUNK-row q-chunks (as the models' plain route) where one call's
+    float32 scores would pass PLAIN_SCORE_BYTES."""
     from repro_torch.kernels.flash_attention import attention_ref
 
-    return attention_ref(q.float(), k.float(), v.float(), scale=q.shape[-1] ** -0.5,
-                         causal=causal, window=window)
+    b, hq, sq, dh = q.shape
+    step = sq if b * hq * sq * k.shape[2] * 4 <= PLAIN_SCORE_BYTES else PLAIN_CHUNK
+    return torch.cat([attention_ref(q[:, :, i:i + step], k, v, scale=dh**-0.5, causal=causal,
+                                    window=window, q_offset=i)
+                      for i in range(0, sq, step)], dim=2)
+
+
+def flash_ref(q, k, v, causal, window):
+    """The plain version's float32 result on ``q, k, v`` cast up."""
+    return plain_attention(q.float(), k.float(), v.float(), causal, window)
 
 
 def flash_agreement(out, ref) -> tuple[float, float, int]:
@@ -2632,7 +2681,9 @@ def _qkv(dev, dtype, b, hq, hkv, sq, sk, dh, seed):
 def flash_cases() -> list[tuple]:
     """(shape (b, hq, hkv, sq, sk, dh), dtype, causal, window) of the flash
     check; case i draws its inputs from seed i: the reference's test
-    matrix (18, f32 then bf16), then 14 ragged cases."""
+    matrix (18, f32 then bf16), then 14 ragged cases at dh 32, then 20 at
+    dh 80, stablelm-3b's head dim (GQA and MHA x causal / window 64 / full
+    at s 256, and 4 ragged; f32 then bf16)."""
     cases = [((2, hq, hkv, 256, 256, 64), dtype, causal, window)
              for dtype in (torch.float32, torch.bfloat16)
              for hq, hkv in ((4, 4), (4, 2), (8, 1))
@@ -2643,7 +2694,21 @@ def flash_cases() -> list[tuple]:
                   (200, 200, True, None), (200, 200, True, 64), (200, 200, False, None),
                   (96, 160, True, None), (160, 96, True, None), (96, 160, False, 48),
                   (1, 37, False, None))]
+    cases += [((2, hq, hkv, sq, sk, 80), dtype, causal, window)
+              for dtype in (torch.float32, torch.bfloat16)
+              for (hq, hkv), sq, sk, causal, window in (
+                  *[(heads, 256, 256, c, w) for heads in ((8, 2), (4, 4))
+                    for c, w in ((True, None), (True, 64), (False, None))],
+                  ((8, 2), 200, 200, True, 48), ((4, 4), 96, 160, False, None),
+                  ((8, 2), 160, 96, True, None), ((4, 4), 1, 37, False, None))]
     return cases
+
+
+def flash_tag(shape) -> str:
+    """The group of :func:`flash_cases` a case's shape belongs to."""
+    if shape[-1] == 80:
+        return "dh80"
+    return "matrix" if shape[3] == 256 else "ragged"
 
 
 def check_differ_share(what: str, differ: int, total: int) -> float:
@@ -2656,105 +2721,125 @@ def check_differ_share(what: str, differ: int, total: int) -> float:
 
 def flash_kernel_phase(dev):
     """The kernel against its plain version over the reference's test
-    matrix, ragged lengths and qwen2-vl-2b's own shape, each entry within
-    its bound; timings at qwen2-vl-2b's shape."""
+    matrix, ragged lengths and head dim 80, each entry within its bound;
+    then at the prefill shapes of FLASH_TIMED, checked and timed beside
+    the plain version, SDPA and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
-        attention_ref, build, flash_attention, launch_counts, reset_launch_counts,
+        build, flash_attention, launch_counts, reset_launch_counts,
     )
 
     cases = flash_cases()
-    worst = {"matrix": 0.0, "ragged": 0.0}
-    differ = {"matrix": [0, 0], "ragged": [0, 0]}  # bf16 entries: differing, all
+    tags = ("matrix", "ragged", "dh80")
+    worst = dict.fromkeys(tags, 0.0)
+    differ = {tag: [0, 0] for tag in tags}  # bf16 entries: differing, all
+    count = dict.fromkeys(tags, 0)
     for i, (shape, dtype, causal, window) in enumerate(cases):
         q, k, v = _qkv(dev, dtype, *shape, seed=i)
         out = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         _, ratio, n_differ = flash_agreement(out, flash_ref(q, k, v, causal, window))
-        tag = "matrix" if shape[3] == 256 else "ragged"
+        tag = flash_tag(shape)
         check(ratio <= 1.0, f"flash_attention {tag} {shape} {dtype} causal={causal} "
               f"window={window}: worst entry at {ratio:.3f}x its bound")
         worst[tag] = max(worst[tag], ratio)
+        count[tag] += 1
         if dtype == torch.bfloat16:
             differ[tag][0] += n_differ
             differ[tag][1] += out.numel()
     share = {tag: check_differ_share(f"{tag} cases", *counts)
              for tag, counts in differ.items()}
     print(f"kernel flash_attention: {len(cases)} cases agree with the plain version "
-          f"(18 of the reference's test matrix, b 2, s 256, dh 64, worst entry "
-          f"{worst['matrix']:.3f}x its bound; {len(cases) - 18} ragged, dh 32, "
-          f"worst {worst['ragged']:.3f}x); bounds: f32 {FLASH_RTOL:g}*(|ref| + row "
-          f"mean|ref|), bf16 that + 2^-8*|ref| against the f32 plain result; bf16 "
-          f"entries that differ from the f32 plain result rounded to bf16: matrix "
-          f"{differ['matrix'][0]} of {differ['matrix'][1]} ({share['matrix']:.3e}), "
-          f"ragged {differ['ragged'][0]} of {differ['ragged'][1]} "
-          f"({share['ragged']:.3e}), limit {BF16_DIFFER_SHARE:g}", flush=True)
+          f"({count['matrix']} of the reference's test matrix, b 2, s 256, dh 64, worst "
+          f"entry {worst['matrix']:.3f}x its bound; {count['ragged']} ragged, dh 32, "
+          f"worst {worst['ragged']:.3f}x; {count['dh80']} at dh 80, GQA and MHA, causal, "
+          f"window, full and ragged, worst {worst['dh80']:.3f}x); bounds: f32 "
+          f"{FLASH_RTOL:g}*(|ref| + row mean|ref|), bf16 that + 2^-8*|ref| against the f32 "
+          f"plain result; bf16 entries that differ from the f32 plain result rounded to "
+          f"bf16: " + ", ".join(f"{tag} {differ[tag][0]} of {differ[tag][1]} "
+                                f"({share[tag]:.3e})" for tag in tags)
+          + f", limit {BF16_DIFFER_SHARE:g}", flush=True)
 
-    b, hq, hkv, s, dh = LM_BATCH, 12, 2, LM_SEQ, 128
     stats = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = _qkv(dev, dtype, b, hq, hkv, s, s, dh, seed=7)
-        for causal, window in ((True, None), (True, 512)):
-            reset_launch_counts()
-            out = flash_attention(q, k, v, causal=causal, window=window)
-            torch.cuda.synchronize()
-            ref = flash_ref(q, k, v, causal, window)
-            err, ratio, n_differ = flash_agreement(out, ref)
-            del ref
-            check(ratio <= 1.0, f"flash_attention {dtype} window={window} at "
-                  f"qwen2-vl-2b's shape: worst entry at {ratio:.3f}x its bound")
-            bf16 = dtype == torch.bfloat16
-            differ = ""
-            if bf16:
-                share = check_differ_share(f"window={window} at qwen2-vl-2b's shape",
-                                           n_differ, out.numel())
-                differ = (f" {n_differ} of {out.numel()} entries ({share:.3e}) differ from "
-                          f"the f32 plain result rounded to bf16;")
-            check(torch.equal(out, flash_attention(q, k, v, causal=causal, window=window)),
-                  "flash_attention is not deterministic")
+    for name, (b, hq, hkv, s, dh), windows in FLASH_TIMED:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _qkv(dev, dtype, b, hq, hkv, s, s, dh, seed=7)
+            for window in windows:
+                causal = True
+                reset_launch_counts()
+                out = flash_attention(q, k, v, causal=causal, window=window)
+                torch.cuda.synchronize()
+                ref = flash_ref(q, k, v, causal, window)
+                err, ratio, n_differ = flash_agreement(out, ref)
+                del ref
+                check(ratio <= 1.0, f"flash_attention {dtype} window={window} at "
+                      f"{name}'s shape: worst entry at {ratio:.3f}x its bound")
+                bf16 = dtype == torch.bfloat16
+                differ = ""
+                if bf16:
+                    share = check_differ_share(f"window={window} at {name}'s shape",
+                                               n_differ, out.numel())
+                    differ = (f" {n_differ} of {out.numel()} entries ({share:.3e}) differ "
+                              f"from the f32 plain result rounded to bf16;")
+                check(torch.equal(out, flash_attention(q, k, v, causal=causal, window=window)),
+                      "flash_attention is not deterministic")
 
-            def kern():
-                return flash_attention(q, k, v, causal=causal, window=window)
+                def kern():
+                    return flash_attention(q, k, v, causal=causal, window=window)
 
-            def plain():
-                return attention_ref(q, k, v, scale=dh**-0.5, causal=causal, window=window)
+                def plain():
+                    return plain_attention(q, k, v, causal, window)
 
-            st = dict(max_abs_err=err, ratio=ratio, ms=time_ms(kern, 20),
-                      plain_ms=time_ms(plain, 3, warmup=1), library_ms=None)
-            launches = launch_counts()["flash_attention"]
-            # one library call for either mask: is_causal, or the causal
-            # sliding window as an explicit (sq, sk) boolean band
-            mask = None
-            if window is not None:
-                dist = (torch.arange(s, device=dev)[:, None]
-                        - torch.arange(s, device=dev)[None, :])
-                mask = (dist >= 0) & (dist < window)
+                st = dict(max_abs_err=err, ratio=ratio, ms=time_ms(kern, 20),
+                          plain_ms=time_ms(plain, 3, warmup=1), library_ms=None)
+                launches = launch_counts()["flash_attention"]
+                # one library call for either mask: is_causal, or the causal
+                # sliding window as an explicit (sq, sk) boolean band
+                mask = None
+                if window is not None:
+                    dist = (torch.arange(s, device=dev)[:, None]
+                            - torch.arange(s, device=dev)[None, :])
+                    mask = (dist >= 0) & (dist < window)
+                    del dist
 
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, is_causal=mask is None, scale=dh**-0.5,
-                    enable_gqa=True)
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, is_causal=mask is None, scale=dh**-0.5,
+                        enable_gqa=True)
 
-            lib_err = float((sdpa().float() - out.float()).abs().max())
-            st["library_ms"] = time_ms(sdpa, 20)
-            lib = (f"{st['library_ms']:.4f} (scaled_dot_product_attention"
-                   f"{'' if mask is None else ' with a band mask'}, max abs diff to "
-                   f"the kernel {lib_err:.3e})")
-            st["bound_ms"], st["bound_by"], flops, nbytes = flash_bound(q, k, causal, window)
-            # the kernel's own tensor-core work: Q·Kᵀ once, P·V once per P term
-            terms = build.kernel_info(dh, True)["p_terms"]
-            floor_ms = flops * (1 + terms) / 2 / BF16_TC_FLOPS * 1e3
-            floor = f", its own tensor-core floor {floor_ms:.4f} ms" if bf16 else ""
-            print(f"kernel flash_attention {str(dtype)[6:]} causal={causal} window={window} "
-                  f"(b {b}, hq {hq}, hkv {hkv}, s {s}, dh {dh}; {flash_design(bf16)}): "
-                  f"max_abs_err={err:.3e} "
-                  f"worst entry at {ratio:.3f}x its bound;{differ} ms={st['ms']:.4f} "
-                  f"plain_ms={st['plain_ms']:.4f} library_ms={lib} bound_ms="
-                  f"{st['bound_ms']:.4f} ({st['bound_by']}: {flops:.3e} flop, "
-                  f"{nbytes / 1e6:.1f} MB{floor}) achieved {flops / st['ms'] / 1e9:.1f} "
-                  f"TFLOP/s; launches={launches} (check, repeat and timing)", flush=True)
-            stats[(dtype, window)] = st
+                lib_err = float((sdpa().float() - out.float()).abs().max())
+                st["library_ms"] = time_ms(sdpa, 20)
+                lib = (f"{st['library_ms']:.4f} (scaled_dot_product_attention"
+                       f"{'' if mask is None else ' with a band mask'}, max abs diff to "
+                       f"the kernel {lib_err:.3e})")
+                del mask
+                st["bound_ms"], st["bound_by"], flops, nbytes = flash_bound(q, k, causal, window)
+                # the kernel's own tensor-core work: Q·Kᵀ once, P·V once per
+                # P term, over the tile's width (128 columns at dh 80)
+                terms = build.kernel_info(dh, True)["p_terms"]
+                width = -(-dh // 64) * 64 if dh > 64 else dh
+                floor_ms = flops * (1 + terms * width / dh) / 2 / BF16_TC_FLOPS * 1e3
+                floor = f", its own tensor-core floor {floor_ms:.4f} ms" if bf16 else ""
+                live = attention_pairs(s, s, causal, window)
+                pairs = f"{live} live (q, k) pairs a head"
+                if window is not None:
+                    every = attention_pairs(s, s, causal, None)
+                    check(live < every, f"window {window} at s {s} masks no causal pair")
+                    pairs += f" of {every} causal ({1 - live / every:.4f} outside the window)"
+                plain_how = ("" if b * hq * s * s * 4 <= PLAIN_SCORE_BYTES
+                             else f" in {PLAIN_CHUNK}-row q-chunks")
+                print(f"kernel flash_attention {str(dtype)[6:]} causal={causal} "
+                      f"window={window} at {name}'s shape (b {b}, hq {hq}, hkv {hkv}, s {s}, "
+                      f"dh {dh}; {flash_design(bf16)}): max_abs_err={err:.3e} worst entry "
+                      f"at {ratio:.3f}x its bound;{differ} ms={st['ms']:.4f} plain_ms="
+                      f"{st['plain_ms']:.4f}{plain_how} library_ms={lib} bound_ms="
+                      f"{st['bound_ms']:.4f} ({st['bound_by']}: {flops:.3e} flop, "
+                      f"{nbytes / 1e6:.1f} MB{floor}; {pairs}) achieved "
+                      f"{flops / st['ms'] / 1e9:.1f} TFLOP/s; launches={launches} (check, "
+                      f"repeat and timing)", flush=True)
+                stats[(name, dtype, window)] = st
+            del q, k, v, out
     return stats
 
 
@@ -2766,29 +2851,53 @@ def logits_worst(out, ref, rtol) -> float:
     return float(out.sub_(ref).abs_().div_(mag.mul_(rtol)).max())
 
 
-def lm_phase(dev):
-    """qwen2-vl-2b at full width from a seeded generator: bf16 prefill on
-    the kernel route (the main path of flash_attention), its trace, and
-    the plain route; float32 prefill, kernel against plain route; bf16
-    routes against the float32 forward; decode against prefill."""
+def first_layers(cfg, params, n_layers: int):
+    """The first ``n_layers`` layers of ``params`` as a model of their own
+    (its config and the module), sharing its tensors: no copy."""
+    import dataclasses
+
+    from repro_torch.models.model import DecoderLM
+
+    sub = dataclasses.replace(cfg, n_layers=n_layers)
+    state = {k: t for k, t in params.state_dict().items()
+             if not k.startswith("layers.") or int(k.split(".")[1]) < n_layers}
+    model = DecoderLM(sub, device="meta")
+    model.load_state_dict(state, assign=True)
+    return sub, model
+
+
+def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None):
+    """``arch`` at its published width from a seeded generator: bf16
+    prefill at (b, s) on the kernel route (flash_attention once per layer,
+    the main path; gemma2-2b none: its softcapped attention takes the
+    plain route, as in the reference), its trace, and the plain route;
+    float32 on the same weights (the first ``f32_layers`` layers where a
+    float32 copy of all would not fit beside the bf16 model), kernel
+    against plain route; the bf16 routes against the float32 forward;
+    DECODE_STEPS float32 decode steps against prefill.  Returns the
+    prefill's flash launches, the float32 config and model."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import spmv
+    from repro_torch.models.common import pad_vocab
     from repro_torch.models.model import DecoderLM, decode_step, forward, init_cache, init_params
 
-    cfg = get_config("qwen2-vl-2b")
+    cfg = get_config(arch)
+    kernel_route = cfg.attn_softcap is None
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"lm: qwen2-vl-2b {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params} parameters in {cfg.dtype}, random init in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    window = "" if cfg.window is None else f" window {cfg.window}"
+    print(f"lm: {arch} {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, attn {cfg.attn}"
+          f"{window}, {cfg.norm}, {cfg.mlp}, {n_params} parameters in {cfg.dtype}, random "
+          f"init in {time.perf_counter() - t0:.1f}s", flush=True)
     gen = torch.Generator(device=dev).manual_seed(1)
-    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen, device=dev)
-    n_tok = LM_BATCH * LM_SEQ
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    n_tok = b * s
 
     forward(cfg, params, toks[:, :256])  # warm-up: load the kernel, plan the products
     torch.cuda.synchronize()
@@ -2801,65 +2910,98 @@ def lm_phase(dev):
     torch.cuda.synchronize()
     walls.append(time.perf_counter() - t0)
     launches = fa.launch_counts()["flash_attention"]
-    check(launches == cfg.n_layers, f"prefill launched flash_attention {launches} "
-          f"times, expected {cfg.n_layers} (one per layer)")
+    want = cfg.n_layers if kernel_route else 0
+    check(launches == want, f"{arch} prefill launched flash_attention {launches} "
+          f"times, expected {want} ({'one per layer' if kernel_route else 'plain route'})")
     check(all(n == 0 for n in spmv.launch_counts().values()), "prefill ran an spmv kernel")
-    check(tuple(bf16_kernel.shape) == (LM_BATCH, LM_SEQ, 152_064)
+    check(tuple(bf16_kernel.shape) == (b, s, pad_vocab(cfg.vocab))
           and bf16_kernel.dtype == torch.float32
-          and bool(torch.isfinite(bf16_kernel).all()), "prefill logits malformed")
+          and bool(torch.isfinite(bf16_kernel).all()), f"{arch} prefill logits malformed")
     peak = torch.cuda.max_memory_allocated(dev)
     for _ in range(2):
         t0 = time.perf_counter()
         forward(cfg, params, toks)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    plain_walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        bf16_plain = forward(cfg, params, toks, use_flash_kernel=False)
-        torch.cuda.synchronize()
-        plain_walls.append(time.perf_counter() - t0)
-    best, best_plain = min(walls), min(plain_walls)
-    print(f"lm: bf16 prefill b={LM_BATCH} s={LM_SEQ}: kernel route "
-          f"{n_tok / best:.0f} tok/s (runs {', '.join(f'{w:.4f}' for w in walls)} s), "
-          f"plain route {n_tok / best_plain:.0f} tok/s (runs "
-          f"{', '.join(f'{w:.4f}' for w in plain_walls)} s); flash_attention "
-          f"launches per prefill {launches}; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    runs = ", ".join(f"{w:.4f}" for w in walls)
+    if kernel_route:
+        plain_walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            bf16_plain = forward(cfg, params, toks, use_flash_kernel=False)
+            torch.cuda.synchronize()
+            plain_walls.append(time.perf_counter() - t0)
+        routes = (f"kernel route {n_tok / min(walls):.0f} tok/s (runs {runs} s), plain route "
+                  f"{n_tok / min(plain_walls):.0f} tok/s (runs "
+                  f"{', '.join(f'{w:.4f}' for w in plain_walls)} s)")
+    else:  # softcapped attention: the plain route is the path, as in the reference
+        bf16_plain = bf16_kernel
+        routes = (f"plain route only (softcapped attention, as the reference) "
+                  f"{n_tok / min(walls):.0f} tok/s (runs {runs} s)")
+    pairs = ""
+    if cfg.attn == "swa":
+        live, every = attention_pairs(s, s, True, cfg.window), attention_pairs(s, s, True, None)
+        check(live < every, f"{arch}: the window masks nothing at s {s}")
+        pairs = (f"; {live} of {every} causal (q, k) pairs a head live "
+                 f"({1 - live / every:.4f} outside the window)")
+    print(f"lm: {arch} bf16 prefill b={b} s={s}: {routes}; flash_attention launches per "
+          f"prefill {launches}; peak memory {peak / 2**30:.2f} GiB{pairs}", flush=True)
     _, wall_ms, busy_ms, rows = traced(lambda: forward(cfg, params, toks))
-    print_trace("lm prefill (bf16, kernel route)", wall_ms, busy_ms, rows, top=8)
+    print_trace(f"lm prefill {arch} (bf16, {'kernel' if kernel_route else 'plain'} route)",
+                wall_ms, busy_ms, rows, top=8)
 
-    # float32 on the same weights, TF32 off
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    # float32 on the same weights, TF32 off; on the first f32_layers layers
+    # where the f32 copy would not fit beside the bf16 model
+    sub_cfg, sub = cfg, params
+    if f32_layers is not None and f32_layers < cfg.n_layers:
+        del bf16_kernel, bf16_plain
+        sub_cfg, sub = first_layers(cfg, params, f32_layers)
+        total = torch.cuda.get_device_properties(dev).total_memory
+        print(f"lm: {arch} float32 checks cut to the first {f32_layers} of {cfg.n_layers} "
+              f"layers, full width (a float32 copy of every layer takes "
+              f"{4 * n_params / 1e9:.1f} GB beside the bf16 {2 * n_params / 1e9:.1f} GB "
+              f"on a {total / 1e9:.1f} GB card); the bf16 routes rerun on that cut",
+              flush=True)
+        bf16_kernel = forward(sub_cfg, sub, toks)
+        bf16_plain = forward(sub_cfg, sub, toks, use_flash_kernel=False)
+    depth = f" ({sub_cfg.n_layers} layers)" if sub_cfg is not cfg else ""
+    cfg32 = dataclasses.replace(sub_cfg, dtype="float32")
     params32 = DecoderLM(cfg32, device=dev)
-    params32.load_state_dict(params.state_dict())
+    params32.load_state_dict(sub.state_dict())
+    del sub
     f32_plain = forward(cfg32, params32, toks, use_flash_kernel=False)
-    f32_kernel = forward(cfg32, params32, toks)
     torch.cuda.synchronize()
-    diff = float((f32_kernel - f32_plain).abs().max())
-    worst = logits_worst(f32_kernel, f32_plain, LOGIT_RTOL)
-    del f32_kernel
-    check(worst <= 1.0, f"f32 prefill: kernel route off the plain route, worst "
-          f"entry {worst:.3f}x its bound")
-    print(f"lm: f32 prefill b={LM_BATCH} s={LM_SEQ}: kernel vs plain route max abs "
-          f"diff {diff:.3e}, worst entry {worst:.4f}x the bound {LOGIT_RTOL:g}*(|ref| "
-          f"+ row mean|ref|); max|logits| {float(f32_plain.abs().max()):.3f}", flush=True)
+    if kernel_route:
+        f32_kernel = forward(cfg32, params32, toks)
+        torch.cuda.synchronize()
+        diff = float((f32_kernel - f32_plain).abs().max())
+        worst = logits_worst(f32_kernel, f32_plain, LOGIT_RTOL)
+        del f32_kernel
+        check(worst <= 1.0, f"{arch} f32 prefill: kernel route off the plain route, "
+              f"worst entry {worst:.3f}x its bound")
+        print(f"lm: {arch} f32 prefill{depth} b={b} s={s}: kernel vs plain route max abs "
+              f"diff {diff:.3e}, worst entry {worst:.4f}x the bound {LOGIT_RTOL:g}*(|ref| "
+              f"+ row mean|ref|); max|logits| {float(f32_plain.abs().max()):.3f}", flush=True)
 
     ref_arg = f32_plain.argmax(dim=-1)
     err = {}
-    for route, logits in (("kernel", bf16_kernel), ("plain", bf16_plain)):
+    for route, logits in ((("kernel", bf16_kernel), ("plain", bf16_plain)) if kernel_route
+                          else (("plain", bf16_plain),)):
         agree = float((logits.argmax(dim=-1) == ref_arg).float().mean())
         err[route] = float(logits.sub_(f32_plain).abs_().mean())
-        print(f"lm: bf16 {route} route vs the f32 forward: argmax agreement "
+        check(bool(np.isfinite(err[route])), f"{arch} bf16 {route} route: error not finite")
+        print(f"lm: {arch} bf16 {route} route{depth} vs the f32 forward: argmax agreement "
               f"{agree:.4f}, mean |diff| {err[route]:.4e}", flush=True)
-    del bf16_kernel, bf16_plain, f32_plain
-    check(err["kernel"] <= BF16_ERR_RATIO * err["plain"],
-          f"bf16 prefill: kernel route's mean error {err['kernel']:.4e} > "
-          f"{BF16_ERR_RATIO}x the plain route's {err['plain']:.4e}")
+    del bf16_kernel, bf16_plain, f32_plain, ref_arg
+    if kernel_route:
+        check(err["kernel"] <= BF16_ERR_RATIO * err["plain"],
+              f"{arch} bf16 prefill: kernel route's mean error {err['kernel']:.4e} > "
+              f"{BF16_ERR_RATIO}x the plain route's {err['plain']:.4e}")
 
     # decode: teacher-force DECODE_STEPS tokens through the ring cache in f32
     dtoks = toks[:, :DECODE_STEPS].contiguous()
     full = forward(cfg32, params32, dtoks)
-    cache = init_cache(cfg32, LM_BATCH, DECODE_STEPS, device=dev)
+    cache = init_cache(cfg32, b, DECODE_STEPS, device=dev)
     fa.reset_launch_counts()
     outs = []
     torch.cuda.synchronize()
@@ -2873,43 +3015,53 @@ def lm_phase(dev):
     dec = torch.stack(outs, dim=1)
     derr = (dec - full).abs()
     dworst = float((derr / (DECODE_TOL + DECODE_TOL * full.abs())).max())
-    check(dworst <= 1.0, f"decode off prefill: worst entry {dworst:.3f}x the bound")
-    print(f"lm: f32 decode b={LM_BATCH}, {DECODE_STEPS} teacher-forced steps: "
+    check(dworst <= 1.0, f"{arch} decode off prefill: worst entry {dworst:.3f}x the bound")
+    print(f"lm: {arch} f32 decode{depth} b={b}, {DECODE_STEPS} teacher-forced steps: "
           f"{step_ms:.2f} ms/step; logits vs prefill max abs err {float(derr.max()):.3e}, "
           f"worst entry {dworst:.4f}x the bound (atol = rtol = {DECODE_TOL:g}); "
           f"no kernel launched", flush=True)
     _, wall_ms, busy_ms, rows = traced(lambda: decode_step(cfg32, params32, dtoks[:, :1], cache))
     launched = 0 if rows is None else sum(e.count for e in rows)
-    print_trace("lm decode step (f32)", wall_ms, busy_ms, rows,
+    print_trace(f"lm decode step {arch} (f32)", wall_ms, busy_ms, rows,
                 extra=f"device ops={launched} ")
     return launches, cfg32, params32
 
 
-def serve_phase(cfg32, params32):
-    """The serve launcher at its full preset: bf16, 4 slots, max-len 64,
-    6 requests, 16 new tokens; no kernel runs on this path.  Then the same
-    requests through the same loop in float32 on ``params32``: every token
-    the engine picks, at the end of a prompt or in a step, must be the
-    argmax of ``forward`` over every token its slot was fed so far (a
-    slot's cache keeps the prompts and pending tokens of every request it
-    served, as in the reference), or within SERVE_TIE of it."""
+def serve_full(arch: str) -> None:
+    """The serve launcher at its full preset for ``arch``: bf16, 4 slots,
+    max-len 64, 6 requests, 16 new tokens; every request finishes and no
+    kernel runs on this path."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve
-    from repro_torch.models.model import forward
-    from repro_torch.serving import ServingEngine
 
     fa.reset_launch_counts()
-    rep = serve.run(["--preset", "full"])
+    rep = serve.run(["--arch", arch, "--preset", "full"])
     check(rep["finished"] == rep["requests"] == 6,
-          f"serve: {rep['finished']} of {rep['requests']} requests finished")
+          f"serve {arch}: {rep['finished']} of {rep['requests']} requests finished")
     check(fa.launch_counts()["flash_attention"] == 0, "serving launched the flash kernel")
-    print(f"lm: serve --preset full (qwen2-vl-2b, bf16, 4 slots, max-len 64): "
+    print(f"lm: serve --arch {arch} --preset full (bf16, 4 slots, max-len 64): "
           f"{rep['finished']} of {rep['requests']} requests finished, "
           f"{rep['tokens']} tokens in {rep['wall_s']:.3f}s = "
           f"{rep['tokens'] / rep['wall_s']:.1f} tok/s; {rep['steps']} steps "
           f"({rep['wall_s'] / rep['steps'] * 1e3:.2f} ms each), {rep['decode_calls']} "
           f"decode calls with prefill ({rep['wall_s'] / rep['decode_calls'] * 1e3:.2f} "
           f"ms each); no kernel launched", flush=True)
+
+
+def serve_phase(cfg32, params32):
+    """qwen2-vl-2b through the serve launcher at its full preset
+    (:func:`serve_full`).  Then the same requests through the same loop in
+    float32 on ``params32``: every token the engine picks, at the end of a
+    prompt or in a step, must be the argmax of ``forward`` over every
+    token its slot was fed so far (a slot's cache keeps the prompts and
+    pending tokens of every request it served, as in the reference), or
+    within SERVE_TIE of it."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import forward
+    from repro_torch.serving import ServingEngine
+
+    serve_full("qwen2-vl-2b")
+    requests = 6
 
     slots, max_len = 4, 64
     eng = ServingEngine(cfg32, params32, batch_slots=slots, max_len=max_len, eos=-1)
@@ -2918,11 +3070,11 @@ def serve_phase(cfg32, params32):
     # pending token once per prompt token; a step feeds every slot's
     # pending token (an idle slot's included)
     fed = []
-    pending = serve.draw_requests(rep["requests"], cfg32.vocab, 16)
+    pending = serve.draw_requests(requests, cfg32.vocab, 16)
     picks = []  # (slot, decode call, token)
     slot_of = {}
     done = 0
-    while done < rep["requests"]:
+    while done < requests:
         while pending:
             before = eng.tokens[:, 0].tolist()
             if not eng.submit(pending[0]):
@@ -2935,7 +3087,7 @@ def serve_phase(cfg32, params32):
         fed.append(eng.tokens[:, 0].tolist())
         for rid, tok in eng.step():
             picks.append((slot_of[rid], len(fed) - 1, tok))
-        done = rep["requests"] - len(pending) - sum(r is not None for r in eng.requests)
+        done = requests - len(pending) - sum(r is not None for r in eng.requests)
     check(len(fed) <= max_len, f"serve f32: {len(fed)} decode calls wrap the "
           f"{max_len}-slot ring; forward over a slot's history no longer applies")
     ties = 0
@@ -3054,10 +3206,23 @@ def main() -> int:
     del g
     with phase_wall("flash"):
         flash = flash_kernel_phase(dev)
+    fa_paths = {}  # {prefill of a model: flash launches}
     with phase_wall("prefill and decode"):
-        launches["flash_attention"], cfg32, params32 = lm_phase(dev)
+        fa_paths["qwen2-vl-2b prefill"], cfg32, params32 = lm_phase(
+            dev, "qwen2-vl-2b", LM_BATCH, LM_SEQ)
     with phase_wall("serve"):
         serve_phase(cfg32, params32)
+    del cfg32, params32
+    for arch, batch, seq, f32_layers in DENSE_LMS:
+        torch.cuda.empty_cache()
+        with phase_wall(f"lm {arch}"):
+            n, _, _ = lm_phase(dev, arch, batch, seq, f32_layers)
+        if n:  # gemma2-2b's prefill is no path of the kernel
+            fa_paths[f"{arch} prefill"] = n
+    torch.cuda.empty_cache()
+    with phase_wall("serve dense"):
+        for arch in DENSE_SERVED:
+            serve_full(arch)
 
     replaces = {"spmv_csr_acc": "src/repro/kernels/spmv/kernel.py:67",
                 "gs_pass": "src/repro/kernels/spmv/kernel.py:181",
@@ -3084,15 +3249,25 @@ def main() -> int:
             **({STORE_DATASET: build_stats[name]} if name in build_stats else {}),
             **({f"{STORE_DATASET} BFS (build)": bfs_stats} if name == "gs_pass" else {}),
         })
-    f = flash[(torch.bfloat16, None)]  # prefill's shape and dtype, causal
+    f = flash[("qwen2-vl-2b", torch.bfloat16, None)]  # its prefill's shape and dtype
+
+    def shape_entry(st):
+        return {key: st[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}
+
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
-        "launches": launches["flash_attention"], "max_abs_err": f["max_abs_err"],
+        # qwen2-vl-2b's prefill; each model's in launches_by_path
+        "launches": fa_paths["qwen2-vl-2b prefill"], "launches_by_path": fa_paths,
+        "max_abs_err": f["max_abs_err"],
         "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
         "timed_by": {"ms": "events", "plain_ms": "events", "library_ms": "events"},
+        # the prefill shapes of stablelm-3b (dh 80) and starcoder2-3b (window 4096), bf16
+        "stablelm-3b shape": shape_entry(flash[("stablelm-3b", torch.bfloat16, None)]),
+        "starcoder2-3b shape": shape_entry(flash[("starcoder2-3b", torch.bfloat16, 4096)]),
     })
     check(all(k["launches"] > 0 and all(n > 0 for n in k.get("launches_by_path", {}).values())
               for k in kernels), "a kernel never launched on a main path")

@@ -106,7 +106,7 @@ def main() -> int:
     for i, (shape, dtype, causal, window) in enumerate(smoke.flash_cases()):
         if dtype == torch.bfloat16:
             qkv = smoke._qkv(dev, dtype, *shape, seed=i)
-            cases.append(("matrix" if shape[3] == 256 else "ragged", qkv, causal, window,
+            cases.append((smoke.flash_tag(shape), qkv, causal, window,
                           smoke.flash_ref(*qkv, causal, window)))
     main_qkv = smoke._qkv(dev, torch.bfloat16, B, HQ, HKV, S, S, DH, seed=7)
     for window in WINDOWS:

@@ -175,11 +175,15 @@ def multi_smem_bytes(block: int, cluster: int = 1) -> int:
 def flash_smem_bytes(dh: int, bf16: bool) -> int:
     """Dynamic shared memory of the flash kernel launched for ``dh``: the
     bf16 kernel's ``tc::Geo<D>::SMEM`` (1,024 B of swizzle alignment, the q
-    tile, the K and V rings, the mbarriers), the float32 kernel's
-    ``smem_floats<D>()`` (the q and k tiles transposed, the p tile)."""
+    tile, the K and V rings, the mbarriers; a tile ``Geo<D>::DT`` columns
+    wide, dh rounded up to whole TMA boxes: 128 at dh 80), the float32
+    kernel's ``smem_floats<D>()`` (the q and k tiles transposed, the p
+    tile)."""
     if bf16:
+        box = min(dh, 64)  # Geo<D>::SW_COLS
+        dt = -(-dh // box) * box
         barriers = 1 + 4 * TC_STAGES
-        return 1024 + FLASH_BQ * dh * 2 + 2 * TC_STAGES * FLASH_BK * dh * 2 + 8 * barriers
+        return 1024 + FLASH_BQ * dt * 2 + 2 * TC_STAGES * FLASH_BK * dt * 2 + 8 * barriers
     return 4 * (dh * FLASH_QS + dh * FLASH_KS + FLASH_BK * FLASH_QS)
 
 

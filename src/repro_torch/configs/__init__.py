@@ -1,8 +1,9 @@
 """Architecture registry of the port.
 
 A copy of the reference's ``repro.configs`` cut to the architectures whose
-model code is ported: qwen2-vl-2b, the reference serve launcher's default.
-Later slices add an arch together with the model code it needs.
+model code is ported: the five dense decoders (starcoder2-3b,
+phi3-medium-14b, gemma2-2b, stablelm-3b, qwen2-vl-2b), in the reference's
+order.  Later slices add an arch together with the model code it needs.
 """
 from __future__ import annotations
 
@@ -11,6 +12,10 @@ import importlib
 from repro_torch.configs.base import EncoderConfig, MLAConfig, ModelConfig, MoEConfig, SSMConfig
 
 _ARCH_MODULES = {
+    "starcoder2-3b": "starcoder2_3b",
+    "phi3-medium-14b": "phi3_medium_14b",
+    "gemma2-2b": "gemma2_2b",
+    "stablelm-3b": "stablelm_3b",
     "qwen2-vl-2b": "qwen2_vl_2b",
 }
 

@@ -80,9 +80,10 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """CI-sized config of the same family for smoke tests: the
-        reference's ``reduced`` for the fields of a dense decoder.  The
-        reference also shrinks the MoE, SSM, MLA and encoder sub-configs;
-        those come with the slices that port their models."""
+        reference's ``reduced`` for the fields of a dense decoder, the
+        sliding window cut to at most 64 included.  The reference also
+        shrinks the MoE, SSM, MLA and encoder sub-configs; those come with
+        the slices that port their models."""
         return dataclasses.replace(
             self,
             n_layers=min(self.n_layers, 2),
@@ -92,4 +93,5 @@ class ModelConfig:
             d_ff=256,
             vocab=512,
             head_dim=32,
+            window=min(self.window, 64) if self.window else None,
         )

@@ -30,7 +30,12 @@
 // consumer warpgroup and one producer warp.  The producer's one thread loads
 // the q tile and a ring of STAGES K and V tiles by TMA, swizzled 128B (64B
 // at dh 32), a tile row cut into 64-column boxes; mbarriers carry "landed"
-// and "consumed" between the roles.  The warpgroup runs S = Q.K^T as
+// and "consumed" between the roles.  dh 80 is not a whole number of boxes:
+// its tiles are 128 columns wide in shared memory, and the TMA fills
+// columns 80-127 with zeros (they lie past the 80-column tensor map), so
+// Q.K^T runs its 5 k-steps of 16 on the boxes as they are, and P.V's
+// columns 80-127 come out 0 and are never stored (60 % more P.V work than
+// dh 80 needs: simple first).  The warpgroup runs S = Q.K^T as
 // wgmma m64n64k16 from shared memory (bf16 products are exact in the
 // float32 accumulator), the masks and online softmax on the accumulator
 // fragment (a row's scores lie on 4 threads: shuffles), then P.V as
@@ -274,22 +279,24 @@ constexpr int P_TERMS = 3;
 
 // Shared-memory geometry of head dim D.  A tile row is cut into TMA boxes of
 // SW_COLS columns (one swizzle row: 128 bytes, or 64 at D = 32); a tile is
-// CHUNKS such boxes, each box [rows][SW_BYTES] with the hardware's 128B (64B)
-// swizzle, which the wgmma descriptors name as their layout.
+// CHUNKS such boxes, DT columns (D rounded up to whole boxes: 128 at D = 80,
+// the columns past D zeros), each box [rows][SW_BYTES] with the hardware's
+// 128B (64B) swizzle, which the wgmma descriptors name as their layout.
 template <int D>
 struct Geo {
   static constexpr int SW_COLS = D < 64 ? D : 64;
   static constexpr int SW_BYTES = 2 * SW_COLS;
-  static constexpr int CHUNKS = D / SW_COLS;
+  static constexpr int DT = (D + SW_COLS - 1) / SW_COLS * SW_COLS;
+  static constexpr int CHUNKS = DT / SW_COLS;
   static constexpr uint64_t LAYOUT = SW_BYTES == 128 ? 1 : 2;  // descriptor swizzle mode
   static constexpr int Q_CHUNK = BQ * SW_BYTES;
   static constexpr int KV_CHUNK = BK * SW_BYTES;
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int Q_BYTES = BQ * DT * 2;  // the TMA counts the zero fill too
+  static constexpr int KV_BYTES = BK * DT * 2;
   static constexpr int BARRIERS = 1 + 4 * STAGES;
   // 1024 bytes of slack to align the tiles to the swizzle period
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
-  static_assert(D % 32 == 0 && D <= 128, "head dims 32, 64, 128");
+  static_assert(D % 16 == 0 && DT <= 128, "head dims 32, 64, 80, 128");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -327,7 +334,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // One box of a 3-D map (columns, rows, heads) into shared memory; rows past
-// the head's end arrive as zeros, and the bytes are counted on `bar`.
+// the head's end and columns past D arrive as zeros, and the whole box's
+// bytes are counted on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int col, int row,
                                          int head, uint64_t* bar) {
   asm volatile(
@@ -522,10 +530,11 @@ flash_attention_tc_kernel(__grid_constant__ const CUtensorMap tq,
   const uint32_t k_addr = smem_u32(ks);
   const uint32_t v_addr = smem_u32(vs);
 
-  // acc[4i + 2h + c]: row r0 + 8h, output column 8i + c0 + c
-  float acc[D / 2];
+  // acc[4i + 2h + c]: row r0 + 8h, output column 8i + c0 + c (of DT; those
+  // from D on stay 0)
+  float acc[G::DT / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < G::DT / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   mbar_wait(q_full, 0);
 
@@ -534,7 +543,8 @@ flash_attention_tc_kernel(__grid_constant__ const CUtensorMap tq,
     const uint32_t parity = (t / STAGES) & 1;
     const int k_start = k_first + t * BK;
 
-    // S = Q K^T: sc[4i + 2h + c] is row r0 + 8h, key k_start + 8i + c0 + c
+    // S = Q K^T over the D real columns: sc[4i + 2h + c] is row r0 + 8h,
+    // key k_start + 8i + c0 + c
     float sc[BK / 2];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
@@ -677,7 +687,8 @@ EncodeTiled encode_tiled() {
 }
 
 // (b * heads, rows, D) bf16, contiguous, as a 3-D map with boxes of
-// (SW_COLS, box_rows, 1) in the swizzle of Geo<D>
+// (SW_COLS, box_rows, 1) in the swizzle of Geo<D>; at D = 80 the second box
+// of a row reaches past the map's 80 columns, into the zero fill
 template <int D>
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rows, int heads,
             int box_rows) {
@@ -757,6 +768,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   switch (dh) {
     FLASH_CASE(32)
     FLASH_CASE(64)
+    FLASH_CASE(80)
     FLASH_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;
@@ -777,6 +789,7 @@ extern "C" int flash_attention_info(int dh, int bf16, int* info) {
   switch (dh) {
     INFO_CASE(32)
     INFO_CASE(64)
+    INFO_CASE(80)
     INFO_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;

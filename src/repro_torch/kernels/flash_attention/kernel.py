@@ -15,9 +15,9 @@ from repro_torch.kernels.flash_attention import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # head dims the CUDA kernel is instantiated for (csrc/flash_attention.cu):
-# 32 for the reduced configs, 64 for the reference's test matrix, 128 for
-# qwen2-vl-2b
-HEAD_DIMS = (32, 64, 128)
+# 32 for the reduced configs, 64 for the reference's test matrix, 80 for
+# stablelm-3b, 128 for starcoder2-3b, phi3-medium-14b and qwen2-vl-2b
+HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _LAUNCHES = {"flash_attention": 0}

@@ -2,8 +2,9 @@
 on the GPU by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --preset full
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --device cpu
 
+``--arch`` is any of the port's dense archs (qwen2-vl-2b by default).
 ``--preset tiny`` (the default) serves the arch's reduced float32 config;
 ``--preset full`` serves it at its published width in its own dtype
 (qwen2-vl-2b: 28 layers, d_model 1536, bf16), from random weights drawn

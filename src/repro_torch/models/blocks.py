@@ -1,9 +1,14 @@
-"""Pre-norm decoder block (RMSNorm, causal GQA, SwiGLU MLP): init, apply,
-decode and its ring cache.
+"""Pre-norm decoder block (RMSNorm or LayerNorm, GQA with a full, sliding
+or local/global window, SwiGLU or GELU MLP, gemma2's optional post norms):
+init, apply, decode and its ring cache.
 
-The other blocks of the reference (sliding-window and local/global
-attention, MLA, MoE, the SSM blocks, post norms) come with the slices of
-the models that use them.
+gemma2's local/global alternation is a per-layer window: local layers
+mask to ``cfg.window``, global layers take a window that masks nothing
+(``s + 1`` in prefill, ``1 << 30`` in decode), and every such layer goes
+through the plain attention route, as the reference's
+``_dynamic_window_attention`` does.  The other blocks of the reference
+(MLA, MoE, the SSM blocks) come with the slices of the models that use
+them.
 """
 from __future__ import annotations
 
@@ -12,20 +17,24 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import GQAttention, gqa_apply, gqa_decode
-from repro_torch.models.common import RMSNorm
+from repro_torch.models.common import make_norm
 from repro_torch.models.mlp import MLP, mlp_apply
 
 
 class DecoderBlock(nn.Module):
-    """``ln_attn``, ``attn``, ``ln_mlp``, ``mlp``; uninitialized until
+    """``ln_attn``, ``attn``, ``ln_mlp``, ``mlp``, and with ``post_norm``
+    ``ln_attn_post`` and ``ln_mlp_post``; uninitialized until
     :meth:`reset_parameters` or ``load_state_dict``."""
 
     def __init__(self, cfg: ModelConfig, *, dtype, device):
         super().__init__()
-        self.ln_attn = RMSNorm(cfg.d_model, dtype=dtype, device=device)
+        self.ln_attn = make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
         self.attn = GQAttention(cfg, dtype=dtype, device=device)
-        self.ln_mlp = RMSNorm(cfg.d_model, dtype=dtype, device=device)
+        self.ln_mlp = make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
         self.mlp = MLP(cfg, dtype=dtype, device=device)
+        if cfg.post_norm:
+            self.ln_attn_post = make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
+            self.ln_mlp_post = make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.attn.reset_parameters(generator)
@@ -40,21 +49,46 @@ def decoder_block_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
 
 
 def decoder_block_apply(params: DecoderBlock, cfg: ModelConfig, x, positions, *,
-                        use_kernel: bool = True):
-    x = x + gqa_apply(params.attn, cfg, params.ln_attn(x), positions, use_kernel=use_kernel)
-    return x + mlp_apply(params.mlp, params.ln_mlp(x))
-
-
-def decoder_block_decode(params: DecoderBlock, cfg: ModelConfig, x, cache: dict):
-    a, cache_a = gqa_decode(params.attn, cfg, params.ln_attn(x), cache)
+                        is_local: bool = False, use_kernel: bool = True):
+    h = params.ln_attn(x)
+    if cfg.attn == "local_global":
+        win = cfg.window if is_local else x.shape[1] + 1
+        a = gqa_apply(params.attn, cfg, h, positions, window=win, use_kernel=False)
+    else:
+        a = gqa_apply(params.attn, cfg, h, positions,
+                      window=cfg.window if cfg.attn == "swa" else None,
+                      use_kernel=use_kernel)
+    if cfg.post_norm:
+        a = params.ln_attn_post(a)
     x = x + a
-    return x + mlp_apply(params.mlp, params.ln_mlp(x)), cache_a
+    m = mlp_apply(params.mlp, params.ln_mlp(x))
+    if cfg.post_norm:
+        m = params.ln_mlp_post(m)
+    return x + m
+
+
+def decoder_block_decode(params: DecoderBlock, cfg: ModelConfig, x, cache: dict, *,
+                         is_local: bool = False):
+    window = cfg.window if cfg.attn == "swa" else None
+    if cfg.attn == "local_global":
+        window = cfg.window if is_local else 1 << 30
+    a, cache_a = gqa_decode(params.attn, cfg, params.ln_attn(x), cache, window=window)
+    if cfg.post_norm:
+        a = params.ln_attn_post(a)
+    x = x + a
+    m = mlp_apply(params.mlp, params.ln_mlp(x))
+    if cfg.post_norm:
+        m = params.ln_mlp_post(m)
+    return x + m, cache_a
 
 
 def decoder_block_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
+    """``k`` and ``v`` of ``T`` ring slots, ``T = min(max_len, window)``
+    for a sliding-window arch (the memory win of SWA), else ``max_len``."""
     hk, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    t = min(max_len, cfg.window) if cfg.attn == "swa" and cfg.window else max_len
     return {
-        "k": torch.zeros((batch, hk, max_len, dh), dtype=dtype, device=device),
-        "v": torch.zeros((batch, hk, max_len, dh), dtype=dtype, device=device),
+        "k": torch.zeros((batch, hk, t, dh), dtype=dtype, device=device),
+        "v": torch.zeros((batch, hk, t, dh), dtype=dtype, device=device),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
     }

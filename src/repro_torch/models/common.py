@@ -1,4 +1,5 @@
-"""Shared building blocks: init, RMSNorm, vocab padding.
+"""Shared building blocks: init, RMSNorm and LayerNorm, softcap, vocab
+padding.
 
 Weights keep the reference's layouts (``(in, out...)`` for dense weights,
 ``(vocab, dim)`` for embeddings) so that ``convert.params_from_jax`` copies
@@ -47,6 +48,7 @@ def embed_init_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 
 
 RMS_EPS = 1e-6
+LN_EPS = 1e-5
 VOCAB_MULTIPLE = 256
 
 
@@ -64,6 +66,47 @@ class RMSNorm(nn.Module):
         x = x.float()
         x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + RMS_EPS)
         return (x * self.scale.float()).to(dt)
+
+
+class LayerNorm(nn.Module):
+    """The reference's ``layernorm``: ``scale`` and ``bias``, float32
+    statistics, ``eps`` 1e-5, the result cast back to the input's dtype."""
+
+    def __init__(self, dim: int, *, dtype, device):
+        super().__init__()
+        self.scale = param((dim,), dtype, device)
+        self.bias = param((dim,), dtype, device)
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        x = x.float()
+        mu = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+        y = (x - mu) * torch.rsqrt(var + LN_EPS)
+        return (y * self.scale.float() + self.bias.float()).to(dt)
+
+
+_NORMS = {"rmsnorm": RMSNorm, "layernorm": LayerNorm}
+
+
+def make_norm(kind: str, dim: int, *, dtype, device) -> nn.Module:
+    """The norm ``cfg.norm`` names (``rmsnorm`` or ``layernorm``) over
+    ``dim``, as the reference's ``make_norm`` picks it; raises
+    ``ValueError`` for another kind."""
+    if kind not in _NORMS:
+        raise ValueError(kind)
+    return _NORMS[kind](dim, dtype=dtype, device=device)
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    """Gemma-2 soft-capping ``cap·tanh(x/cap)``; ``x`` as it is for None.
+    One new tensor, the rest in place: gemma2's float32 logits at b 1,
+    s 8192 are 8.4 GB each."""
+    if cap is None:
+        return x
+    return (x / cap).tanh_().mul_(cap)
 
 
 def pad_vocab(vocab: int) -> int:

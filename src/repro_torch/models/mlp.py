@@ -1,5 +1,5 @@
-"""Feed-forward block: SwiGLU, the MLP of qwen2-vl-2b.  The GELU MLP and
-Mixture of Experts come with the slices of the models that use them."""
+"""Feed-forward block: SwiGLU or GELU, as ``cfg.mlp`` says.  Mixture of
+Experts comes with the slice of the models that use it."""
 from __future__ import annotations
 
 import torch
@@ -11,8 +11,8 @@ from repro_torch.models.common import dense_init_, param
 
 
 class MLP(nn.Module):
-    """``wi (d, f)``, ``wg (d, f)`` and ``wo (f, d)``, in the reference's
-    layout; uninitialized until :meth:`reset_parameters` or
+    """``wi (d, f)``, ``wg (d, f)`` (SwiGLU only) and ``wo (f, d)``, in the
+    reference's layout; uninitialized until :meth:`reset_parameters` or
     ``load_state_dict``."""
 
     def __init__(self, cfg: ModelConfig, *, dtype, device):
@@ -20,12 +20,14 @@ class MLP(nn.Module):
         self.cfg = cfg
         d, f = cfg.d_model, cfg.d_ff
         self.wi = param((d, f), dtype, device)
-        self.wg = param((d, f), dtype, device)
+        if cfg.mlp == "swiglu":
+            self.wg = param((d, f), dtype, device)
         self.wo = param((f, d), dtype, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         dense_init_(self.wi, generator, self.cfg.d_model)
-        dense_init_(self.wg, generator, self.cfg.d_model)
+        if self.cfg.mlp == "swiglu":
+            dense_init_(self.wg, generator, self.cfg.d_model)
         dense_init_(self.wo, generator, self.cfg.d_ff)
 
 
@@ -37,5 +39,11 @@ def mlp_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
 
 
 def mlp_apply(params: MLP, x: torch.Tensor) -> torch.Tensor:
-    """``silu(x·wg) · (x·wi) · wo``."""
-    return (F.silu(x @ params.wg) * (x @ params.wi)) @ params.wo
+    """``silu(x·wg) · (x·wi) · wo`` (SwiGLU), else ``gelu(x·wi) · wo`` with
+    the tanh approximation, which ``jax.nn.gelu`` takes by default."""
+    h = x @ params.wi
+    if params.cfg.mlp == "swiglu":
+        h = F.silu(x @ params.wg) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return h @ params.wo

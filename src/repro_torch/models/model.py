@@ -1,4 +1,5 @@
-"""Model assembly of the dense decoder-only LM (qwen2-vl-2b's path).
+"""Model assembly of the dense decoder-only LMs (starcoder2-3b,
+phi3-medium-14b, gemma2-2b, stablelm-3b, qwen2-vl-2b).
 
 Public API, as the reference's (over a :class:`DecoderLM` in place of a
 params pytree):
@@ -14,6 +15,8 @@ each model feature this one does not run.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -25,12 +28,12 @@ from repro_torch.models.blocks import (
     decoder_block_decode,
     decoder_block_init_cache,
 )
-from repro_torch.models.common import RMSNorm, embed_init_, pad_vocab, param
+from repro_torch.models.common import embed_init_, make_norm, pad_vocab, param, softcap
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-_STARCODER2 = "the starcoder2-3b slice"
-_GEMMA2 = "the gemma2-2b slice"
+_MOE = "the MoE slice (mixtral-8x22b, deepseek-v2-236b)"
+_MLA = "the MLA slice (deepseek-v2-236b)"
 _SSM = "the SSM and hybrid slice (falcon-mamba-7b, zamba2-2.7b)"
 _WHISPER = "the whisper-medium slice"
 
@@ -38,21 +41,16 @@ _WHISPER = "the whisper-medium slice"
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a field of ``cfg`` set to a value
     whose model code is not ported yet, naming the slice that brings it.
-    The port runs a dense decoder with full causal GQA, M-RoPE, a SwiGLU
-    MLP, RMSNorm and tied embeddings: qwen2-vl-2b."""
-    attn_slice = {"swa": _STARCODER2, "local_global": _GEMMA2,
-                  "mla": "the MLA slice (deepseek-v2-236b)", "none": _SSM}
+    The port runs the dense decoders: full, sliding-window or local/global
+    GQA with RoPE or M-RoPE and optional softcaps, a SwiGLU or GELU MLP,
+    RMSNorm or LayerNorm with optional post norms, tied or untied
+    embeddings."""
+    attn_slice = {"mla": _MLA, "none": _SSM}
     later = (
-        ("attn", cfg.attn != "full", attn_slice.get(cfg.attn, "no slice")),
-        ("mlp", cfg.mlp != "swiglu", _STARCODER2),
-        ("norm", cfg.norm != "rmsnorm", _STARCODER2),
-        ("mrope", not cfg.mrope, _STARCODER2),
-        ("tie_embeddings", not cfg.tie_embeddings, _STARCODER2),
-        ("post_norm", cfg.post_norm, _GEMMA2),
-        ("attn_softcap", cfg.attn_softcap is not None, _GEMMA2),
-        ("logit_softcap", cfg.logit_softcap is not None, _GEMMA2),
-        ("moe", cfg.moe is not None, "the MoE slice (mixtral-8x22b, deepseek-v2-236b)"),
-        ("mla", cfg.mla is not None, "the MLA slice (deepseek-v2-236b)"),
+        ("attn", cfg.attn not in ("full", "swa", "local_global"),
+         attn_slice.get(cfg.attn, "no slice")),
+        ("moe", cfg.moe is not None, _MOE),
+        ("mla", cfg.mla is not None, _MLA),
         ("ssm", cfg.ssm is not None, _SSM),
         ("hybrid_attn_every", cfg.hybrid_attn_every != 0, _SSM),
         ("encoder", cfg.encoder is not None, _WHISPER),
@@ -68,21 +66,26 @@ def check_ported(cfg: ModelConfig) -> None:
 
 
 class DecoderLM(nn.Module):
-    """``embed (Vpad, d)`` (tied to the unembedding), ``layers`` (one
-    :class:`DecoderBlock` each) and ``ln_f``; uninitialized until
-    :meth:`reset_parameters` or ``load_state_dict``."""
+    """``embed (Vpad, d)``, ``layers`` (one :class:`DecoderBlock` each),
+    ``ln_f``, and ``lm_head (Vpad, d)`` where the embeddings are untied;
+    uninitialized until :meth:`reset_parameters` or ``load_state_dict``."""
 
     def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
         check_ported(cfg)
         dtype = _DTYPES[cfg.dtype]
-        self.embed = param((pad_vocab(cfg.vocab), cfg.d_model), dtype, device)
+        vpad = pad_vocab(cfg.vocab)
+        self.embed = param((vpad, cfg.d_model), dtype, device)
         self.layers = nn.ModuleList(
             DecoderBlock(cfg, dtype=dtype, device=device) for _ in range(cfg.n_layers))
-        self.ln_f = RMSNorm(cfg.d_model, dtype=dtype, device=device)
+        self.ln_f = make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
+        if not cfg.tie_embeddings:
+            self.lm_head = param((vpad, cfg.d_model), dtype, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         embed_init_(self.embed, generator)
+        if hasattr(self, "lm_head"):
+            embed_init_(self.lm_head, generator)
         for layer in self.layers:
             layer.reset_parameters(generator)
 
@@ -102,10 +105,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, *,
     return model
 
 
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
-    """M-RoPE positions ``(B, 3, S)`` of text: t = h = w = the index."""
+def _positions(cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """RoPE positions ``(B, S)``: the index; for M-RoPE ``(B, 3, S)`` of
+    text, t = h = w = the index."""
     b, s = tokens.shape
-    return torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, 3, s)
+    pos = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    if cfg.mrope:
+        return pos[:, None].expand(b, 3, s)
+    return pos
+
+
+def _local_pattern(cfg: ModelConfig) -> list[bool]:
+    """Which layers are local: gemma2's even layers, under local_global."""
+    return [cfg.attn == "local_global" and i % 2 == 0 for i in range(cfg.n_layers)]
+
+
+def _embed(cfg: ModelConfig, params: "DecoderLM", tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows; for gemma, times √d_model rounded to the model's
+    dtype first, as the reference (which keys this on the name) does."""
+    x = params.embed[tokens.long()]
+    if cfg.name.startswith("gemma"):
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    return x
 
 
 def forward(
@@ -122,17 +143,19 @@ def forward(
     CUDA device every layer's attention runs the hand-written CUDA flash
     kernel, once per layer.  ``use_flash_kernel=False`` asks for the plain
     attention route, for tests and comparisons."""
-    x = params.embed[tokens.long()]
-    positions = _positions(tokens)
-    for layer in params.layers:
-        x = decoder_block_apply(layer, cfg, x, positions, use_kernel=use_flash_kernel)
-    return unembed(params, params.ln_f(x))
+    x = _embed(cfg, params, tokens)
+    positions = _positions(cfg, tokens)
+    for layer, local in zip(params.layers, _local_pattern(cfg)):
+        x = decoder_block_apply(layer, cfg, x, positions, is_local=local,
+                                use_kernel=use_flash_kernel)
+    return unembed(cfg, params, params.ln_f(x))
 
 
-def unembed(params: DecoderLM, x: torch.Tensor) -> torch.Tensor:
-    """Logits through the tied embedding, a product in the model's dtype
-    cast up to float32."""
-    return (x @ params.embed.T).float()
+def unembed(cfg: ModelConfig, params: DecoderLM, x: torch.Tensor) -> torch.Tensor:
+    """Logits through the embedding (tied) or ``lm_head``: a product in the
+    model's dtype cast up to float32, then the logit softcap in float32."""
+    head = params.embed if cfg.tie_embeddings else params.lm_head
+    return softcap((x @ head.T).float(), cfg.logit_softcap)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> dict:
@@ -152,9 +175,9 @@ def decode_step(
     """One token for every row of the batch: logits ``(B, 1, Vpad)``
     float32 and the cache, whose K/V tensors are updated in place.  Plain
     torch attention, as in the reference: no kernel runs here."""
-    x = params.embed[tokens.long()]
+    x = _embed(cfg, params, tokens)
     layers = []
-    for layer, lc in zip(params.layers, cache["layers"]):
-        x, nc = decoder_block_decode(layer, cfg, x, lc)
+    for layer, lc, local in zip(params.layers, cache["layers"], _local_pattern(cfg)):
+        x, nc = decoder_block_decode(layer, cfg, x, lc, is_local=local)
         layers.append(nc)
-    return unembed(params, params.ln_f(x)), {"layers": layers}
+    return unembed(cfg, params, params.ln_f(x)), {"layers": layers}

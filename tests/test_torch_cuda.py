@@ -733,11 +733,44 @@ def test_bf16_kernel_needs_16_byte_aligned_operands(cuda):
 
 
 def test_flash_attention_rejects_other_head_dims(cuda):
-    q, k, v = _qkv(cuda, torch.float32, 1, 2, 2, 16, 16, 80, seed=0)
+    q, k, v = _qkv(cuda, torch.float32, 1, 2, 2, 16, 16, 96, seed=0)
     reset_flash_counts()
-    with pytest.raises(ValueError, match=r"supported: \(32, 64, 128\)"):
+    with pytest.raises(ValueError, match=r"supported: \(32, 64, 80, 128\)"):
         flash_attention(q, k, v)
     assert flash_counts()["flash_attention"] == 0
+
+
+# head dim 80 (stablelm-3b): the bf16 kernel's tiles are 128 columns wide,
+# columns 80-127 zero-filled by the TMA; GQA and MHA, causal, windowed and
+# full, ragged lengths, q tails shorter than a tile
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (256, 256, True, None), (256, 256, True, 64), (256, 256, False, None),
+    (200, 200, True, 48), (96, 160, False, None), (160, 96, True, None), (1, 37, False, None),
+])
+def test_flash_attention_dh80_matches_plain(cuda, dtype, hq, hkv, sq, sk, causal, window):
+    q, k, v = _qkv(cuda, dtype, 2, hq, hkv, sq, sk, 80, seed=sq + sk + hq)
+    reset_flash_counts()
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_counts()["flash_attention"] == 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _flash_worst(out, q, k, v, causal, window) <= 1.0
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_flash_attention_info_dh80(cuda, bf16):
+    """No spill at dh 80, and the shared memory the analysis mirror
+    computes (the bf16 tiles 128 columns wide)."""
+    from repro_torch.analysis.kernels import flash_smem_bytes
+
+    info = flash_build.kernel_info(80, bf16)
+    assert info["spill_bytes"] == 0 and info["ctas_per_sm"] >= 1
+    assert info["smem_bytes"] == flash_smem_bytes(80, bf16)
+    assert info["smem_bytes"] == (flash_build.kernel_info(128, True)["smem_bytes"] if bf16
+                                  else 4 * (80 * 68 * 2 + 64 * 68))
 
 
 def test_flash_attention_row_without_live_key_is_zero(cuda):
@@ -770,6 +803,45 @@ def test_forward_on_card_runs_the_kernel_once_per_layer(cuda, s):
     mag = ref.abs()
     # float32 logits: 1e-4 × (|ref| + mean|ref| of the token's row)
     assert float(((out - ref).abs() / (mag + mag.mean(-1, keepdim=True))).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "phi3-medium-14b", "gemma2-2b",
+                                  "stablelm-3b"])
+def test_dense_arch_forward_on_card_matches_plain(cuda, arch):
+    """Each dense arch reduced, float32: the kernel route launches the
+    kernel once per layer (gemma2's softcapped attention never: the plain
+    route, as in the reference) and gives the plain route's logits, at
+    s 96, where the reduced window of 64 bites."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 96), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(3))
+    reset_flash_counts()
+    out = forward(cfg, params, toks)
+    assert flash_counts()["flash_attention"] == (0 if arch == "gemma2-2b" else cfg.n_layers)
+    ref = forward(cfg, params, toks, use_flash_kernel=False)
+    torch.cuda.synchronize()
+    mag = ref.abs()
+    assert float(((out - ref).abs() / (mag + mag.mean(-1, keepdim=True))).max()) <= 1e-4
+
+
+def test_starcoder2_full_width_window_on_card(cuda):
+    """starcoder2-3b at its published width, cut to 2 layers, float32, at
+    s 8192: a quarter of the causal (q, k) pairs lie outside its window of
+    4096, and the kernel route gives the plain route's logits within
+    1e-4·(|ref| + mean|ref| of the token's row)."""
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), n_layers=2, dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab, (1, 8192), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(4))
+    reset_flash_counts()
+    out = forward(cfg, params, toks)
+    assert flash_counts()["flash_attention"] == 2
+    ref = forward(cfg, params, toks, use_flash_kernel=False)
+    torch.cuda.synchronize()
+    mag = ref.abs()
+    mag += mag.mean(-1, keepdim=True)
+    assert float(out.sub_(ref).abs_().div_(mag).max()) <= 1e-4
 
 
 def test_decode_matches_forward_on_card(cuda):

@@ -153,8 +153,24 @@ def test_flash_attention_rejects_bad_operands(case, match):
 
 
 def test_head_dims_cover_the_slice():
-    # 32: reduced configs; 64: the reference's test matrix; 128: qwen2-vl-2b
-    assert HEAD_DIMS == (32, 64, 128)
+    # 32: reduced configs; 64: the reference's test matrix; 80: stablelm-3b;
+    # 128: starcoder2-3b, phi3-medium-14b, qwen2-vl-2b
+    assert HEAD_DIMS == (32, 64, 80, 128)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64), (False, None)])
+def test_head_dim_80_matches_the_tpu_kernel(dtype, hq, hkv, causal, window):
+    """stablelm-3b's head dim, which the CUDA kernel takes from this slice
+    on: the plain version against the TPU kernel at the matrix's
+    tolerances."""
+    b, s, dh = 2, 256, 80
+    arrays = _inputs(hq * 10 + hkv + dh, b, hq, hkv, s, s, dh)
+    ref = jax_flash_kernel(*_jax(arrays, dtype), scale=dh**-0.5, causal=causal,
+                           window=window, block_q=64, block_k=64, interpret=True)
+    out = flash_attention(*_port(arrays, dtype), causal=causal, window=window)
+    _close(out, ref, dtype)
 
 
 def test_both_sources_build_through_one_helper():
@@ -184,6 +200,7 @@ RAGGED = [((2, 4, 2, sq, sk, 32), sq + sk, causal, window)
                                          (160, 96, True, None), (96, 160, False, 48),
                                          (1, 37, False, None))]
 QWEN_HEAD = [((1, 1, 1, 1024, 1024, 128), 1024, True, None)]  # one (b, h), dh 128
+STABLELM_HEAD = [((1, 1, 1, 1024, 1024, 80), 80, True, None)]  # one (b, h), dh 80
 
 
 def _emulate(q, k, v, *, causal, window, terms, block_k=64):
@@ -246,7 +263,8 @@ def _split_ratios(shape, seed, causal, window, terms):
             float((out != ref.to(torch.bfloat16)).float().mean()))
 
 
-@pytest.mark.parametrize("shape,seed,causal,window", MATRIX + RAGGED + QWEN_HEAD)
+@pytest.mark.parametrize("shape,seed,causal,window",
+                         MATRIX + RAGGED + QWEN_HEAD + STABLELM_HEAD)
 def test_the_kernels_p_terms_keep_the_bound(shape, seed, causal, window):
     """With the kernel's 3 P terms every entry keeps chip_smoke.py's bf16
     bound, and before the rounding to bf16 the float32 result keeps half

@@ -78,12 +78,23 @@ def tokens(seed, b, s, vocab):
 
 
 def test_config_is_a_copy_of_the_reference():
-    assert ARCH_IDS == ("qwen2-vl-2b",)
-    assert dataclasses.asdict(get_config("qwen2-vl-2b")) == \
-        dataclasses.asdict(jax_get_config("qwen2-vl-2b"))
+    """The five dense archs, in the reference's order, each config and its
+    reduced config (the window cut to 64 included) equal to the
+    reference's."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+
+    assert ARCH_IDS == ("starcoder2-3b", "phi3-medium-14b", "gemma2-2b", "stablelm-3b",
+                        "qwen2-vl-2b")
+    assert ARCH_IDS == tuple(a for a in JAX_ARCH_IDS if a in ARCH_IDS)
+    for arch in ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))
+        assert dataclasses.asdict(get_config(arch).reduced()) == \
+            dataclasses.asdict(jax_get_config(arch).reduced())
+    assert get_config("starcoder2-3b").reduced().window == 64
+    assert get_config("gemma2-2b").reduced().window == 64
     assert dataclasses.asdict(reduced(get_config)) == dataclasses.asdict(reduced(jax_get_config))
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("gemma2-2b")
+        get_config("mixtral-8x22b")
 
 
 def test_full_width_parameter_count():
@@ -331,17 +342,8 @@ def test_cpu_forward_launches_no_kernel(cfg, params):
 
 
 @pytest.mark.parametrize("field,value,slice_", [
-    ("attn", "swa", "starcoder2"),
-    ("attn", "local_global", "gemma2"),
     ("attn", "mla", "MLA"),
     ("attn", "none", "SSM"),
-    ("mlp", "gelu", "starcoder2"),
-    ("norm", "layernorm", "starcoder2"),
-    ("mrope", False, "starcoder2"),
-    ("tie_embeddings", False, "starcoder2"),
-    ("post_norm", True, "gemma2"),
-    ("attn_softcap", 50.0, "gemma2"),
-    ("logit_softcap", 30.0, "gemma2"),
     ("moe", "set", "MoE"),
     ("mla", "set", "MLA"),
     ("ssm", "set", "SSM"),
@@ -362,6 +364,8 @@ def test_unported_config_fields_raise(field, value, slice_, cfg):
         with pytest.raises(NotImplementedError, match=f"{field}=.*{slice_}"):
             build(c)
     check_ported(cfg)  # qwen2-vl-2b's own fields pass
+    for arch in ARCH_IDS:  # and every dense arch's
+        check_ported(get_config(arch))
 
 
 def test_default_device_is_cuda(cfg):

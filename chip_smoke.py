@@ -176,9 +176,11 @@ Phases, one or more lines each; any failure exits non-zero:
                its bound, and in bf16 few entries other than the float32
                plain result rounded to bf16; then at the prefill shapes of
                qwen2-vl-2b (b 2, hq 12, hkv 2, s 4096, dh 128; causal and
-               window 512), stablelm-3b (b 2, hq 32, hkv 32, s 4096, dh 80)
-               and starcoder2-3b (b 2, hq 24, hkv 2, s 8192, dh 128, window
-               4096, which masks a quarter of the causal pairs), checked
+               window 512), stablelm-3b (b 2, hq 32, hkv 32, s 4096, dh 80),
+               starcoder2-3b (b 2, hq 24, hkv 2, s 8192, dh 128, window
+               4096, which masks a quarter of the causal pairs) and
+               mixtral-8x22b (b 1, hq 48, hkv 8, s 8192, dh 128, window
+               4096), checked
                and timed beside the plain version, SDPA (with a band mask
                for a window) and the bound (and, in bf16, the floor of the
                kernel's own tensor-core work: P·V as P_TERMS bf16
@@ -204,7 +206,21 @@ Phases, one or more lines each; any failure exits non-zero:
                s 8192 (no launch: softcapped attention takes the plain
                route, as in the reference; its bf16 error against its f32
                forward); then serve --preset full for starcoder2-3b and
-               gemma2-2b.
+               gemma2-2b;
+20. moe     — phase 19's checks for the MoE decoders at their published
+               widths on their first 4 layers (MOE_LMS; the published
+               depths take 281 and 479 GB in bf16), the reckoning
+               printed: mixtral-8x22b at b 1, s 8192 (4 flash launches,
+               window 4096 live; f32 checks on 2 layers) and
+               deepseek-v2-236b at b 1, s 4096 (MLA: the plain route, no
+               launch; f32 checks on 1 layer); the pairs the sparse
+               dispatch drops at capacity 1.25; the f32 and bf16
+               comparisons under the dense dispatch, tokens whose
+               experts differ between the compared runs reported with
+               their gate margins and left out (a first flip above
+               FLIP_MARGIN fails); decode at b 1 against the dense
+               prefill; the f32 engine at 1 slot, every pick forward's
+               argmax, and at 4 slots, every request finished.
 
 Each phase ends with its host wall on a line ``phase <name>: wall_s=``.
 It then prints one JSON line naming every kernel (its ``timed_by`` says
@@ -298,9 +314,10 @@ TOPK_VALUE_TOL = 1e-5
 BF16_TC_FLOPS = 989e12
 FP32_FLOPS = 67e12
 # flash_attention agrees with its plain version when every entry is within
-# FLASH_RTOL·(|ref| + the mean |ref| of its row) in float32; a bfloat16
-# output is held against the float32 plain result on the same inputs, with
-# one bf16 rounding (half an ulp: BF16_ROUNDING·|ref|) on top.
+# FLASH_RTOL·(|ref| + the mean |ref| of its row): a float32 output against
+# the plain result evaluated in float64, a bfloat16 output against the
+# float32 plain result on the same inputs, with one bf16 rounding (half an
+# ulp: BF16_ROUNDING·|ref|) on top.
 FLASH_RTOL = 1e-5
 BF16_ROUNDING = 2.0**-8
 # That bound cannot see float32 digits under the rounding; the share of
@@ -311,6 +328,9 @@ BF16_ROUNDING = 2.0**-8
 BF16_DIFFER_SHARE = 1e-3
 LM_BATCH, LM_SEQ = 2, 4096  # qwen2-vl-2b prefill
 LOGIT_RTOL = 1e-4  # f32 logits, kernel vs plain route, entry-wise
+# An MoE token routed to other experts by two f32 runs that should agree
+# must have sat this near a tie (its K-th less its (K+1)-th softmax weight)
+FLIP_MARGIN = 1e-5
 BF16_ERR_RATIO = 1.25  # bf16 kernel route's mean error over the plain route's
 DECODE_STEPS = 128
 DECODE_TOL = 2e-3  # decode vs prefill, the reference test's atol = rtol
@@ -324,6 +344,7 @@ FLASH_TIMED = (
     ("qwen2-vl-2b", (LM_BATCH, 12, 2, LM_SEQ, 128), (None, 512)),
     ("stablelm-3b", (2, 32, 32, 4096, 80), (None,)),
     ("starcoder2-3b", (2, 24, 2, 8192, 128), (4096,)),
+    ("mixtral-8x22b", (1, 48, 8, 8192, 128), (4096,)),
 )
 # the dense decoders after qwen2-vl-2b: (arch, prefill b, s, layers of the
 # float32 checks, None for all)
@@ -337,6 +358,16 @@ DENSE_LMS = (
     ("gemma2-2b", 1, 8192, None),
 )
 DENSE_SERVED = ("starcoder2-3b", "gemma2-2b")
+# the MoE decoders at their published widths, which do not fit one card at
+# their published depths (281 and 479 GB in bf16): (arch, prefill b, s,
+# layers built, layers of the float32 checks)
+MOE_LMS = (
+    # s 8192: its window of 4096 is live; 20.8 GB in bf16, the f32 checks 21.6 GB
+    ("mixtral-8x22b", 1, 8192, 4, 2),
+    # 33.9 GB in bf16, the f32 checks 20.1 GB (with the f32 embedding and head)
+    ("deepseek-v2-236b", 1, 4096, 4, 1),
+)
+MOE_SERVE_LEN = 160  # one slot serves the launcher's 6 requests, ~125 decode calls
 SERVE_TIE = 1e-4  # top-2 logit gap under which either token is greedy's pick
 # The reference's DecompositionPlan of the full webStanford surrogate
 # (host numpy, the same in both packages; tests/test_torch_sticd.py holds
@@ -2638,30 +2669,43 @@ def flash_design(bf16: bool, lib=None) -> str:
 
 
 def plain_attention(q, k, v, causal, window):
-    """The kernel's plain version on ``q, k, v`` in their dtype; in
-    PLAIN_CHUNK-row q-chunks (as the models' plain route) where one call's
-    float32 scores would pass PLAIN_SCORE_BYTES."""
+    """The kernel's plain version on ``q, k, v`` in their dtype (scores in
+    float32, or float64 for float64 inputs); in PLAIN_CHUNK-row q-chunks
+    (as the models' plain route) where one call's scores would pass
+    PLAIN_SCORE_BYTES."""
     from repro_torch.kernels.flash_attention import attention_ref
 
     b, hq, sq, dh = q.shape
-    step = sq if b * hq * sq * k.shape[2] * 4 <= PLAIN_SCORE_BYTES else PLAIN_CHUNK
+    score_bytes = max(4, q.element_size())
+    step = sq if b * hq * sq * k.shape[2] * score_bytes <= PLAIN_SCORE_BYTES else PLAIN_CHUNK
     return torch.cat([attention_ref(q[:, :, i:i + step], k, v, scale=dh**-0.5, causal=causal,
                                     window=window, q_offset=i)
                       for i in range(0, sq, step)], dim=2)
 
 
 def flash_ref(q, k, v, causal, window):
-    """The plain version's float32 result on ``q, k, v`` cast up."""
+    """The plain version's result on ``q, k, v`` cast up: for bfloat16
+    inputs its float32 result (the bf16 bound and differ share are defined
+    against it); for float32 inputs its float64 result.  The float32 plain
+    version's own rounding nearly fills FLASH_RTOL's bound at the long
+    windowed rows of starcoder2-3b's and mixtral-8x22b's prefill shapes,
+    so against it the check could not tell a right float32 kernel from a
+    wrong one there; at each timed shape the flash phase prints the float32
+    plain result's own reading against float64, and the kernel's against
+    the float32 plain result."""
+    if q.dtype == torch.float32:
+        return plain_attention(q.double(), k.double(), v.double(), causal, window)
     return plain_attention(q.float(), k.float(), v.float(), causal, window)
 
 
 def flash_agreement(out, ref) -> tuple[float, float, int]:
     """Max abs error of ``out`` against ``ref`` (:func:`flash_ref`), the
-    worst entry over its bound: 1e-5·(|ref| + mean|ref| of its row) in
-    float32, plus 2⁻⁸·|ref| (one rounding to bfloat16) for a bfloat16
-    ``out``; and for a bfloat16 ``out`` the count of entries that differ
-    from ``ref`` rounded to bfloat16 (0 for float32).  A row is the dh
-    values of one (batch, head, query)."""
+    worst entry over its bound: 1e-5·(|ref| + mean|ref| of its row) for a
+    float32 ``out`` (against the float64 plain result) or a bfloat16 one
+    (against the float32 plain result), plus 2⁻⁸·|ref| (one rounding to
+    bfloat16) for a bfloat16 ``out``; and for a bfloat16 ``out`` the count
+    of entries that differ from ``ref`` rounded to bfloat16 (0 for
+    float32).  A row is the dh values of one (batch, head, query)."""
     err = (out.float() - ref).abs()
     mag = ref.abs()
     bound = FLASH_RTOL * (mag + mag.mean(dim=-1, keepdim=True))
@@ -2755,9 +2799,9 @@ def flash_kernel_phase(dev):
           f"entry {worst['matrix']:.3f}x its bound; {count['ragged']} ragged, dh 32, "
           f"worst {worst['ragged']:.3f}x; {count['dh80']} at dh 80, GQA and MHA, causal, "
           f"window, full and ragged, worst {worst['dh80']:.3f}x); bounds: f32 "
-          f"{FLASH_RTOL:g}*(|ref| + row mean|ref|), bf16 that + 2^-8*|ref| against the f32 "
-          f"plain result; bf16 entries that differ from the f32 plain result rounded to "
-          f"bf16: " + ", ".join(f"{tag} {differ[tag][0]} of {differ[tag][1]} "
+          f"{FLASH_RTOL:g}*(|ref| + row mean|ref|) against the f64 plain result, bf16 that "
+          f"+ 2^-8*|ref| against the f32 plain result; bf16 entries that differ from the "
+          f"f32 plain result rounded to bf16: " + ", ".join(f"{tag} {differ[tag][0]} of {differ[tag][1]} "
                                 f"({share[tag]:.3e})" for tag in tags)
           + f", limit {BF16_DIFFER_SHARE:g}", flush=True)
 
@@ -2772,11 +2816,18 @@ def flash_kernel_phase(dev):
                 torch.cuda.synchronize()
                 ref = flash_ref(q, k, v, causal, window)
                 err, ratio, n_differ = flash_agreement(out, ref)
-                del ref
                 check(ratio <= 1.0, f"flash_attention {dtype} window={window} at "
                       f"{name}'s shape: worst entry at {ratio:.3f}x its bound")
                 bf16 = dtype == torch.bfloat16
                 differ = ""
+                if not bf16:  # the float32 plain result's own reading, and the kernel's on it
+                    plain32 = plain_attention(q, k, v, causal, window)
+                    differ = (f" against the float64 plain result (the float32 plain "
+                              f"result's worst entry {flash_agreement(plain32, ref)[1]:.3f}x; the "
+                              f"kernel's against the float32 plain result "
+                              f"{flash_agreement(out, plain32)[1]:.3f}x);")
+                    del plain32
+                del ref
                 if bf16:
                     share = check_differ_share(f"window={window} at {name}'s shape",
                                                n_differ, out.numel())
@@ -2853,7 +2904,9 @@ def logits_worst(out, ref, rtol) -> float:
 
 def first_layers(cfg, params, n_layers: int):
     """The first ``n_layers`` layers of ``params`` as a model of their own
-    (its config and the module), sharing its tensors: no copy."""
+    (its config and the module), sharing its tensors: no copy, and each
+    parameter in its own dtype (an MoE router stays float32 in a bf16
+    model)."""
     import dataclasses
 
     from repro_torch.models.model import DecoderLM
@@ -2866,16 +2919,99 @@ def first_layers(cfg, params, n_layers: int):
     return sub, model
 
 
-def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None):
-    """``arch`` at its published width from a seeded generator: bf16
-    prefill at (b, s) on the kernel route (flash_attention once per layer,
-    the main path; gemma2-2b none: its softcapped attention takes the
-    plain route, as in the reference), its trace, and the plain route;
-    float32 on the same weights (the first ``f32_layers`` layers where a
-    float32 copy of all would not fit beside the bf16 model), kernel
-    against plain route; the bf16 routes against the float32 forward;
-    DECODE_STEPS float32 decode steps against prefill.  Returns the
-    prefill's flash launches, the float32 config and model."""
+@contextlib.contextmanager
+def recorded_routing():
+    """Record every MoE routing made inside, layer after layer: a list of
+    (experts ``(T, K)`` sorted, gate margin ``(T,)``), the margin being a
+    token's K-th softmax weight less its (K+1)-th (how near its top-k set
+    came to another).  Wraps ``repro_torch.models.mlp.moe_route``, which
+    both dispatches call."""
+    from repro_torch.models import mlp
+
+    route = mlp.moe_route
+    calls = []
+
+    def recorded(params, xf, top_k):
+        topw, topi = route(params, xf, top_k)
+        w = torch.topk(torch.softmax(xf.float() @ params.router, dim=-1), top_k + 1).values
+        calls.append((topi.sort(dim=-1).values, w[:, top_k - 1] - w[:, top_k]))
+        return topw, topi
+
+    mlp.moe_route = recorded
+    try:
+        yield calls
+    finally:
+        mlp.moe_route = route
+
+
+def routing_differs(ref, other) -> torch.Tensor:
+    """Tokens whose top-k set differs in some layer between two runs'
+    routings (lists of :func:`recorded_routing`)."""
+    return torch.stack([(ei != ej).any(dim=-1)
+                        for (ei, _), (ej, _) in zip(ref, other, strict=True)]).any(dim=0)
+
+
+def routing_flips(what: str, ref, other) -> tuple[torch.Tensor, str]:
+    """Tokens whose top-k set differs between two runs' routings (lists of
+    :func:`recorded_routing`, layer by layer).  A token that first flips in
+    a layer must have come within FLIP_MARGIN of a tie there (its margin in
+    ``ref``); later layers see its changed state, so only first flips are
+    held.  Returns the flipped tokens (any layer) and a per-layer summary:
+    flips, first flips with their largest margin, the smallest margin of
+    any token."""
+    flipped = torch.zeros_like(ref[0][1], dtype=torch.bool)
+    per_layer = []
+    for layer, ((ei, mi), (ej, _)) in enumerate(zip(ref, other, strict=True)):
+        now = (ei != ej).any(dim=-1)
+        first = now & ~flipped
+        worst = float(mi[first].max()) if bool(first.any()) else 0.0
+        check(worst <= FLIP_MARGIN,
+              f"{what}: layer {layer} routes {int(first.sum())} tokens to other experts, "
+              f"one with a gate margin of {worst:.3e} > {FLIP_MARGIN:g}")
+        flipped |= now
+        per_layer.append(f"layer {layer}: {int(now.sum())} flipped ({int(first.sum())} first, "
+                         f"largest margin {worst:.2e}), smallest margin {float(mi.min()):.2e}")
+    return flipped, "; ".join(per_layer)
+
+
+def token_rows(t: torch.Tensor, kept: torch.Tensor | None) -> torch.Tensor:
+    """The token positions ``kept`` (dim 1) of ``t``; ``t`` itself, no
+    copy, for None."""
+    return t if kept is None else t[:, kept]
+
+
+def dropped_pairs(cfg, routing) -> list[int]:
+    """Pairs the sparse dispatch drops in each layer of a recorded prefill
+    (:func:`recorded_routing`) at the default capacity: each expert's pairs
+    past ``expert_capacity``."""
+    from repro_torch.models.mlp import expert_capacity
+
+    out = []
+    for topi, _ in routing:
+        cap = expert_capacity(topi.shape[0], cfg, 1.25)
+        load = torch.bincount(topi.reshape(-1), minlength=cfg.moe.n_experts)
+        out.append(int((load - cap).clamp_min(0).sum()))
+    return out
+
+
+def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None,
+             layers: int | None = None):
+    """``arch`` at its published width from a seeded generator (its first
+    ``layers`` layers where the published depth does not fit the card):
+    bf16 prefill at (b, s) on the kernel route (flash_attention once per
+    GQA layer, the main path; gemma2-2b's softcapped attention and
+    deepseek-v2-236b's MLA none: the plain route, as in the reference), its
+    trace, and the plain route; float32 on the same weights (the first
+    ``f32_layers`` layers where a float32 copy of all would not fit beside
+    the bf16 model), kernel against plain route; the bf16 routes against
+    the float32 forward; DECODE_STEPS float32 decode steps against prefill.
+
+    An MoE arch's prefill runs the sparse dispatch, whose dropped pairs
+    are counted; its checks run the dense dispatch (no drops), at b 1 for
+    decode (where the sparse dispatch drops nothing either), and report
+    the tokens whose experts differ between the compared runs
+    (:func:`routing_flips`), leaving them out of the comparison.  Returns
+    the prefill's flash launches, the float32 config and model."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2885,16 +3021,35 @@ def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None):
     from repro_torch.models.model import DecoderLM, decode_step, forward, init_cache, init_params
 
     cfg = get_config(arch)
-    kernel_route = cfg.attn_softcap is None
+    published = cfg.n_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    moe = cfg.moe is not None
+    check(not moe or b == 1, f"{arch}: decode is checked against prefill at b 1 only")
+    disp = "dense" if moe else "sparse"  # the dispatch of the checks
+    kernel_route = cfg.attn_softcap is None and cfg.attn != "mla"
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     window = "" if cfg.window is None else f" window {cfg.window}"
+    ffn = (f"MoE {cfg.moe.n_experts} experts top {cfg.moe.top_k} of d_ff "
+           f"{cfg.moe.d_ff_expert} (+{cfg.moe.n_shared} shared)" if moe else cfg.mlp)
     print(f"lm: {arch} {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
           f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, attn {cfg.attn}"
-          f"{window}, {cfg.norm}, {cfg.mlp}, {n_params} parameters in {cfg.dtype}, random "
+          f"{window}, {cfg.norm}, {ffn}, {n_params} parameters in {cfg.dtype}, random "
           f"init in {time.perf_counter() - t0:.1f}s", flush=True)
+    if layers is not None:
+        per_layer = sum(p.numel() for p in params.layers[0].parameters())
+        rest = n_params - layers * per_layer
+        total = torch.cuda.get_device_properties(dev).total_memory
+        print(f"lm: {arch} depth cut to {layers} of its {published} layers, full width: "
+              f"{per_layer} parameters a layer ({2 * per_layer / 1e9:.2f} GB bf16), "
+              f"embedding and head {rest} ({2 * rest / 1e9:.2f} GB); {layers} layers "
+              f"{2 * n_params / 1e9:.1f} GB, all {published} "
+              f"{2 * (published * per_layer + rest) / 1e9:.1f} GB, on a {total / 1e9:.1f} GB "
+              f"card; the float32 checks on {f32_layers} layers, "
+              f"{4 * (f32_layers * per_layer + rest) / 1e9:.1f} GB", flush=True)
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
     n_tok = b * s
@@ -2917,7 +3072,6 @@ def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None):
     check(tuple(bf16_kernel.shape) == (b, s, pad_vocab(cfg.vocab))
           and bf16_kernel.dtype == torch.float32
           and bool(torch.isfinite(bf16_kernel).all()), f"{arch} prefill logits malformed")
-    peak = torch.cuda.max_memory_allocated(dev)
     for _ in range(2):
         t0 = time.perf_counter()
         forward(cfg, params, toks)
@@ -2934,9 +3088,10 @@ def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None):
         routes = (f"kernel route {n_tok / min(walls):.0f} tok/s (runs {runs} s), plain route "
                   f"{n_tok / min(plain_walls):.0f} tok/s (runs "
                   f"{', '.join(f'{w:.4f}' for w in plain_walls)} s)")
-    else:  # softcapped attention: the plain route is the path, as in the reference
+    else:  # softcapped attention or MLA: the plain route is the path, as in the reference
         bf16_plain = bf16_kernel
-        routes = (f"plain route only (softcapped attention, as the reference) "
+        why = "MLA" if cfg.attn == "mla" else "softcapped attention"
+        routes = (f"plain route only ({why}, as the reference) "
                   f"{n_tok / min(walls):.0f} tok/s (runs {runs} s)")
     pairs = ""
     if cfg.attn == "swa":
@@ -2944,86 +3099,142 @@ def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None):
         check(live < every, f"{arch}: the window masks nothing at s {s}")
         pairs = (f"; {live} of {every} causal (q, k) pairs a head live "
                  f"({1 - live / every:.4f} outside the window)")
+    peak = torch.cuda.max_memory_allocated(dev)
     print(f"lm: {arch} bf16 prefill b={b} s={s}: {routes}; flash_attention launches per "
           f"prefill {launches}; peak memory {peak / 2**30:.2f} GiB{pairs}", flush=True)
+    if moe:
+        from repro_torch.models.mlp import expert_capacity
+
+        with recorded_routing() as routing:
+            forward(cfg, params, toks)
+        drops = dropped_pairs(cfg, routing)
+        total_pairs = n_tok * cfg.moe.top_k
+        print(f"lm: {arch} sparse dispatch at capacity factor 1.25 ("
+              f"{expert_capacity(n_tok, cfg, 1.25)} slots an expert for {total_pairs} pairs "
+              f"over {cfg.moe.n_experts} experts): dropped pairs by layer {drops}, "
+              f"{sum(drops)} of {total_pairs * cfg.n_layers} "
+              f"({sum(drops) / (total_pairs * cfg.n_layers):.4f})", flush=True)
+        del routing
     _, wall_ms, busy_ms, rows = traced(lambda: forward(cfg, params, toks))
     print_trace(f"lm prefill {arch} (bf16, {'kernel' if kernel_route else 'plain'} route)",
-                wall_ms, busy_ms, rows, top=8)
+                wall_ms, busy_ms, rows, top=10 if moe else 8)
 
     # float32 on the same weights, TF32 off; on the first f32_layers layers
-    # where the f32 copy would not fit beside the bf16 model
+    # where the f32 copy would not fit beside the bf16 model, whose other
+    # layers are freed
     sub_cfg, sub = cfg, params
-    if f32_layers is not None and f32_layers < cfg.n_layers:
+    cut = f32_layers is not None and f32_layers < cfg.n_layers
+    if cut:
         del bf16_kernel, bf16_plain
         sub_cfg, sub = first_layers(cfg, params, f32_layers)
+        del params
         total = torch.cuda.get_device_properties(dev).total_memory
         print(f"lm: {arch} float32 checks cut to the first {f32_layers} of {cfg.n_layers} "
               f"layers, full width (a float32 copy of every layer takes "
               f"{4 * n_params / 1e9:.1f} GB beside the bf16 {2 * n_params / 1e9:.1f} GB "
               f"on a {total / 1e9:.1f} GB card); the bf16 routes rerun on that cut",
               flush=True)
-        bf16_kernel = forward(sub_cfg, sub, toks)
-        bf16_plain = forward(sub_cfg, sub, toks, use_flash_kernel=False)
+    bf16_routing = {}
+    if cut or moe:
+        with recorded_routing() as bf16_routing["kernel"]:
+            bf16_kernel = forward(sub_cfg, sub, toks, moe_dispatch=disp)
+        if kernel_route:
+            with recorded_routing() as bf16_routing["plain"]:
+                bf16_plain = forward(sub_cfg, sub, toks, moe_dispatch=disp,
+                                     use_flash_kernel=False)
+        else:
+            bf16_plain, bf16_routing["plain"] = bf16_kernel, bf16_routing["kernel"]
     depth = f" ({sub_cfg.n_layers} layers)" if sub_cfg is not cfg else ""
     cfg32 = dataclasses.replace(sub_cfg, dtype="float32")
     params32 = DecoderLM(cfg32, device=dev)
     params32.load_state_dict(sub.state_dict())
     del sub
-    f32_plain = forward(cfg32, params32, toks, use_flash_kernel=False)
+    with recorded_routing() as routing32:
+        f32_plain = forward(cfg32, params32, toks, moe_dispatch=disp, use_flash_kernel=False)
     torch.cuda.synchronize()
+    rows_kept = None  # an MoE arch's token positions compared (None: all)
     if kernel_route:
-        f32_kernel = forward(cfg32, params32, toks)
+        with recorded_routing() as routing:
+            f32_kernel = forward(cfg32, params32, toks, moe_dispatch=disp)
         torch.cuda.synchronize()
-        diff = float((f32_kernel - f32_plain).abs().max())
-        worst = logits_worst(f32_kernel, f32_plain, LOGIT_RTOL)
+        flips = ""
+        if moe:
+            flipped, summary = routing_flips(f"{arch} f32 kernel vs plain route", routing32,
+                                             routing)
+            flips = (f"; dense dispatch, {int(flipped.sum())} tokens routed to other "
+                     f"experts by the two routes, left out ({summary})")
+            rows_kept = ~flipped
+        diff = float(token_rows(f32_kernel - f32_plain, rows_kept).abs().max())
+        worst = logits_worst(token_rows(f32_kernel, rows_kept), token_rows(f32_plain, rows_kept),
+                             LOGIT_RTOL)
         del f32_kernel
         check(worst <= 1.0, f"{arch} f32 prefill: kernel route off the plain route, "
               f"worst entry {worst:.3f}x its bound")
         print(f"lm: {arch} f32 prefill{depth} b={b} s={s}: kernel vs plain route max abs "
               f"diff {diff:.3e}, worst entry {worst:.4f}x the bound {LOGIT_RTOL:g}*(|ref| "
-              f"+ row mean|ref|); max|logits| {float(f32_plain.abs().max()):.3f}", flush=True)
+              f"+ row mean|ref|); max|logits| {float(f32_plain.abs().max()):.3f}{flips}",
+              flush=True)
 
     ref_arg = f32_plain.argmax(dim=-1)
     err = {}
     for route, logits in ((("kernel", bf16_kernel), ("plain", bf16_plain)) if kernel_route
                           else (("plain", bf16_plain),)):
-        agree = float((logits.argmax(dim=-1) == ref_arg).float().mean())
-        err[route] = float(logits.sub_(f32_plain).abs_().mean())
+        kept, flips = rows_kept, ""
+        if moe:  # bf16 rounding moves gates by far more than FLIP_MARGIN
+            flipped = routing_differs(routing32, bf16_routing[route])
+            kept = ~flipped
+            flips = f", {int(flipped.sum())} of {s} tokens routed otherwise than in f32 left out"
+        agree = float(token_rows(logits.argmax(dim=-1) == ref_arg, kept).float().mean())
+        err[route] = float(token_rows(logits.sub_(f32_plain), kept).abs_().mean())
         check(bool(np.isfinite(err[route])), f"{arch} bf16 {route} route: error not finite")
         print(f"lm: {arch} bf16 {route} route{depth} vs the f32 forward: argmax agreement "
-              f"{agree:.4f}, mean |diff| {err[route]:.4e}", flush=True)
-    del bf16_kernel, bf16_plain, f32_plain, ref_arg
+              f"{agree:.4f}, mean |diff| {err[route]:.4e}{flips}", flush=True)
+    del bf16_kernel, bf16_plain, f32_plain, ref_arg, bf16_routing
     if kernel_route:
         check(err["kernel"] <= BF16_ERR_RATIO * err["plain"],
               f"{arch} bf16 prefill: kernel route's mean error {err['kernel']:.4e} > "
               f"{BF16_ERR_RATIO}x the plain route's {err['plain']:.4e}")
 
-    # decode: teacher-force DECODE_STEPS tokens through the ring cache in f32
+    # decode: teacher-force DECODE_STEPS tokens through the cache in f32
     dtoks = toks[:, :DECODE_STEPS].contiguous()
-    full = forward(cfg32, params32, dtoks)
+    with recorded_routing() as routing32:
+        full = forward(cfg32, params32, dtoks, moe_dispatch=disp)
     cache = init_cache(cfg32, b, DECODE_STEPS, device=dev)
     fa.reset_launch_counts()
     outs = []
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t in range(DECODE_STEPS):
-        logits, cache = decode_step(cfg32, params32, dtoks[:, t:t + 1], cache)
-        outs.append(logits[:, 0])
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
+    with recorded_routing() as routing:
+        t0 = time.perf_counter()
+        for t in range(DECODE_STEPS):
+            logits, cache = decode_step(cfg32, params32, dtoks[:, t:t + 1], cache)
+            outs.append(logits[:, 0])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
     check(fa.launch_counts()["flash_attention"] == 0, "decode launched the flash kernel")
     dec = torch.stack(outs, dim=1)
-    derr = (dec - full).abs()
-    dworst = float((derr / (DECODE_TOL + DECODE_TOL * full.abs())).max())
+    kept, flips = None, ""
+    if moe:  # the steps' routings (one token each), regrouped layer by layer
+        by_layer = [routing[i::cfg32.n_layers] for i in range(cfg32.n_layers)]
+        flipped, summary = routing_flips(
+            f"{arch} f32 decode vs prefill", routing32,
+            [(torch.cat([e for e, _ in calls]), torch.cat([m for _, m in calls]))
+             for calls in by_layer])
+        kept = ~flipped
+        flips = (f"; sparse dispatch at b 1 against the dense prefill, "
+                 f"{int(flipped.sum())} tokens routed otherwise, left out ({summary})")
+    derr = token_rows(dec - full, kept).abs()
+    dworst = float((derr / (DECODE_TOL + DECODE_TOL * token_rows(full, kept).abs())).max())
     check(dworst <= 1.0, f"{arch} decode off prefill: worst entry {dworst:.3f}x the bound")
     print(f"lm: {arch} f32 decode{depth} b={b}, {DECODE_STEPS} teacher-forced steps: "
           f"{step_ms:.2f} ms/step; logits vs prefill max abs err {float(derr.max()):.3e}, "
           f"worst entry {dworst:.4f}x the bound (atol = rtol = {DECODE_TOL:g}); "
-          f"no kernel launched", flush=True)
+          f"no kernel launched{flips}", flush=True)
     _, wall_ms, busy_ms, rows = traced(lambda: decode_step(cfg32, params32, dtoks[:, :1], cache))
     launched = 0 if rows is None else sum(e.count for e in rows)
     print_trace(f"lm decode step {arch} (f32)", wall_ms, busy_ms, rows,
                 extra=f"device ops={launched} ")
+    print(f"lm: {arch} peak memory from the prefill on "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB", flush=True)
     return launches, cfg32, params32
 
 
@@ -3050,20 +3261,26 @@ def serve_full(arch: str) -> None:
 
 def serve_phase(cfg32, params32):
     """qwen2-vl-2b through the serve launcher at its full preset
-    (:func:`serve_full`).  Then the same requests through the same loop in
-    float32 on ``params32``: every token the engine picks, at the end of a
+    (:func:`serve_full`), then :func:`serve_held` at the launcher's 4 slots
+    and max-len 64 on ``params32``."""
+    serve_full("qwen2-vl-2b")
+    serve_held(cfg32, params32, 4, 64)
+
+
+def serve_held(cfg32, params32, slots: int, max_len: int) -> None:
+    """The serve launcher's requests and loop in float32 on ``params32``,
+    with ``slots`` slots: every token the engine picks, at the end of a
     prompt or in a step, must be the argmax of ``forward`` over every
     token its slot was fed so far (a slot's cache keeps the prompts and
     pending tokens of every request it served, as in the reference), or
-    within SERVE_TIE of it."""
+    within SERVE_TIE of it.  ``forward`` runs an MoE's dense dispatch: the
+    decode steps' sparse one drops nothing at 1 slot (the MoE archs' case;
+    at more, a slot's tokens take capacity from the others')."""
     from repro_torch.launch import serve
     from repro_torch.models.model import forward
     from repro_torch.serving import ServingEngine
 
-    serve_full("qwen2-vl-2b")
     requests = 6
-
-    slots, max_len = 4, 64
     eng = ServingEngine(cfg32, params32, batch_slots=slots, max_len=max_len, eos=-1)
     # the (slots,) tokens of every decode call, rebuilt from what the loop
     # sees: a submit feeds the prompt to its slot and every other slot's
@@ -3093,7 +3310,7 @@ def serve_phase(cfg32, params32):
     ties = 0
     for slot in range(slots):
         hist = torch.tensor([[call[slot] for call in fed]], device=params32.embed.device)
-        logits = forward(cfg32, params32, hist)[0, :, :cfg32.vocab]
+        logits = forward(cfg32, params32, hist, moe_dispatch="dense")[0, :, :cfg32.vocab]
         top = torch.topk(logits, 2, dim=-1)
         for s, c, tok in picks:
             if s != slot:
@@ -3105,9 +3322,60 @@ def serve_phase(cfg32, params32):
                   f"serve f32: slot {slot} picked {tok} at decode call {c}; forward's "
                   f"argmax over the slot's history is {best} (top-2 gap {gap:.3e})")
             ties += tie
-    print(f"lm: serve f32 (same requests and loop, the decode phase's weights): "
-          f"{len(picks)} picks over {len(fed)} decode calls, each forward's argmax "
-          f"over its slot's history ({ties} top-2 gaps under {SERVE_TIE:g})", flush=True)
+    print(f"lm: serve f32 {cfg32.name} ({slots} slots, max-len {max_len}; the launcher's "
+          f"requests and loop on the decode phase's weights): {len(picks)} picks over "
+          f"{len(fed)} decode calls, each forward's argmax over its slot's history ({ties} "
+          f"top-2 gaps under {SERVE_TIE:g})", flush=True)
+
+
+
+def serve_finishes(cfg32, params32, slots: int, max_len: int = 64) -> None:
+    """The serve launcher's 6 requests and loop in float32 on
+    ``params32`` with ``slots`` slots: every request finishes with its 16
+    tokens, and no kernel runs on this path."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+
+    fa.reset_launch_counts()
+    eng = ServingEngine(cfg32, params32, batch_slots=slots, max_len=max_len, eos=-1)
+    pending = serve.draw_requests(6, cfg32.vocab, 16)
+    admitted, steps = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(admitted) < 6 or any(r is not None for r in eng.requests):
+        while pending and eng.submit(pending[0]):
+            admitted.append(pending.pop(0))
+        eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(r.done and len(r.out) == 16 for r in admitted),
+          f"serve f32 {cfg32.name} at {slots} slots: a request did not finish")
+    check(fa.launch_counts()["flash_attention"] == 0, "serving launched the flash kernel")
+    print(f"lm: serve f32 {cfg32.name} ({slots} slots, max-len {max_len}): 6 of 6 requests "
+          f"finished, 96 tokens in {wall:.3f}s over {steps} steps "
+          f"({wall / steps * 1e3:.2f} ms each); no kernel launched", flush=True)
+
+
+def moe_phase(dev) -> dict:
+    """The MoE decoders (MOE_LMS) at their published widths, each cut in
+    depth: :func:`lm_phase` (mixtral-8x22b's prefill launches
+    flash_attention once a layer, deepseek-v2-236b's MLA none), then
+    :func:`serve_held` at 1 slot and :func:`serve_finishes` at 4 on its
+    float32 weights.  Returns the flash launches of each prefill that has
+    them."""
+    fa_paths = {}
+    for arch, b, s, layers, f32_layers in MOE_LMS:
+        torch.cuda.empty_cache()
+        with phase_wall(f"moe {arch}"):
+            n, cfg32, params32 = lm_phase(dev, arch, b, s, f32_layers, layers=layers)
+            serve_held(cfg32, params32, 1, MOE_SERVE_LEN)
+            serve_finishes(cfg32, params32, 4)
+        del cfg32, params32
+        if n:
+            fa_paths[f"{arch} prefill"] = n
+    return fa_paths
 
 
 def main() -> int:
@@ -3216,13 +3484,14 @@ def main() -> int:
     for arch, batch, seq, f32_layers in DENSE_LMS:
         torch.cuda.empty_cache()
         with phase_wall(f"lm {arch}"):
-            n, _, _ = lm_phase(dev, arch, batch, seq, f32_layers)
+            n = lm_phase(dev, arch, batch, seq, f32_layers)[0]  # frees its f32 model
         if n:  # gemma2-2b's prefill is no path of the kernel
             fa_paths[f"{arch} prefill"] = n
     torch.cuda.empty_cache()
     with phase_wall("serve dense"):
         for arch in DENSE_SERVED:
             serve_full(arch)
+    fa_paths.update(moe_phase(dev))
 
     replaces = {"spmv_csr_acc": "src/repro/kernels/spmv/kernel.py:67",
                 "gs_pass": "src/repro/kernels/spmv/kernel.py:181",
@@ -3265,9 +3534,11 @@ def main() -> int:
         "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
         "timed_by": {"ms": "events", "plain_ms": "events", "library_ms": "events"},
-        # the prefill shapes of stablelm-3b (dh 80) and starcoder2-3b (window 4096), bf16
+        # the prefill shapes of stablelm-3b (dh 80), starcoder2-3b and
+        # mixtral-8x22b (window 4096), bf16
         "stablelm-3b shape": shape_entry(flash[("stablelm-3b", torch.bfloat16, None)]),
         "starcoder2-3b shape": shape_entry(flash[("starcoder2-3b", torch.bfloat16, 4096)]),
+        "mixtral-8x22b shape": shape_entry(flash[("mixtral-8x22b", torch.bfloat16, 4096)]),
     })
     check(all(k["launches"] > 0 and all(n > 0 for n in k.get("launches_by_path", {}).values())
               for k in kernels), "a kernel never launched on a main path")

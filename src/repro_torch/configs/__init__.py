@@ -2,7 +2,8 @@
 
 A copy of the reference's ``repro.configs`` cut to the architectures whose
 model code is ported: the five dense decoders (starcoder2-3b,
-phi3-medium-14b, gemma2-2b, stablelm-3b, qwen2-vl-2b), in the reference's
+phi3-medium-14b, gemma2-2b, stablelm-3b, qwen2-vl-2b) and the two MoE
+decoders (mixtral-8x22b, deepseek-v2-236b with MLA), in the reference's
 order.  Later slices add an arch together with the model code it needs.
 """
 from __future__ import annotations
@@ -17,6 +18,8 @@ _ARCH_MODULES = {
     "gemma2-2b": "gemma2_2b",
     "stablelm-3b": "stablelm_3b",
     "qwen2-vl-2b": "qwen2_vl_2b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -80,12 +80,12 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """CI-sized config of the same family for smoke tests: the
-        reference's ``reduced`` for the fields of a dense decoder, the
-        sliding window cut to at most 64 included.  The reference also
-        shrinks the MoE, SSM, MLA and encoder sub-configs; those come with
-        the slices that port their models."""
-        return dataclasses.replace(
-            self,
+        reference's ``reduced`` for the fields of a dense or MoE decoder
+        (the sliding window cut to at most 64, the MoE and MLA sub-configs
+        shrunk as the reference shrinks them).  The reference also shrinks
+        the SSM and encoder sub-configs; those come with the slices that
+        port their models."""
+        changes: dict = dict(
             n_layers=min(self.n_layers, 2),
             d_model=128,
             n_heads=4,
@@ -95,3 +95,15 @@ class ModelConfig:
             head_dim=32,
             window=min(self.window, 64) if self.window else None,
         )
+        if self.moe:
+            changes["moe"] = MoEConfig(
+                n_experts=4, top_k=min(self.moe.top_k, 2), d_ff_expert=64,
+                n_shared=min(self.moe.n_shared, 1),
+            )
+        if self.mla:
+            changes["mla"] = MLAConfig(
+                q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
+                qk_rope_head_dim=16, v_head_dim=32,
+            )
+            changes["head_dim"] = 0
+        return dataclasses.replace(self, **changes)

@@ -1,18 +1,17 @@
-"""Grouped-query attention (GQA) of the dense decoders: RoPE or qwen2-vl's
-M-RoPE, causal, with an optional sliding window and gemma2's score
-softcap, over the whole sequence (prefill) or one step against the ring
-cache (decode).
+"""Attention of the decoders: grouped-query attention (GQA) with RoPE or
+qwen2-vl's M-RoPE, causal, with an optional sliding window and gemma2's
+score softcap, and deepseek-v2's multi-head latent attention (MLA), each
+over the whole sequence (prefill) or one step against its cache (decode).
 
 ``gqa_apply`` routes to the flash-attention op when ``use_kernel`` is set
 and the config has no score softcap (as the reference does), which on a
 CUDA tensor is the hand-written CUDA kernel (``kernels/flash_attention``).
 Unlike the reference, ``use_kernel`` defaults to True: on the card the
 kernel route is the path, and the plain route is an explicit request.
-``gqa_decode`` is plain torch attention, as the reference's jnp
-``gqa_decode`` is: no kernel runs on decode.
+``gqa_decode``, ``mla_apply`` and ``mla_decode`` are plain torch, as the
+reference's jnp versions are: no kernel runs on them.
 
-The reference's other attention paths (MLA, cross attention) come with the
-slices of the models that use them
+The reference's cross attention comes with the whisper slice
 (:func:`repro_torch.models.model.check_ported`).
 """
 from __future__ import annotations
@@ -22,7 +21,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import dense_init_, param, softcap
+from repro_torch.models.common import RMSNorm, dense_init_, param, softcap
 from repro_torch.models.rope import apply_mrope, apply_rope
 
 
@@ -116,7 +115,8 @@ def _full_attention(q, k, v, scale, causal, window, cap, q_offset):
     """Attention of the queries ``q`` whose first row sits at absolute
     position ``q_offset``, over every key: scores in float32, softcapped,
     masked (``qpos >= kpos`` when causal, ``qpos - kpos < window``) to
-    -1e30, softmax, P·V; output in q's dtype.  q head ``ih`` reads kv head
+    -1e30, softmax, P·V; output in q's dtype, of v's head dim (MLA's q and
+    k heads are wider than its v heads).  q head ``ih`` reads kv head
     ``ih // (hq // hkv)`` without repeating k and v."""
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -131,7 +131,7 @@ def _full_attention(q, k, v, scale, causal, window, cap, q_offset):
         mask &= qpos - kpos < window
     p = torch.softmax(s_.masked_fill_(~mask, -1e30), dim=-1)
     o = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
-    return o.reshape(b, hq, sq, dh).to(q.dtype)
+    return o.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
 
 
 def gqa_decode(
@@ -198,3 +198,120 @@ def _slot_abs_pos(pos, t: int):
     # latest write to slot s has abs position: largest p <= cur with p % t == s
     base = torch.div(cur, t, rounding_mode="floor") * t + slots
     return torch.where(base <= cur, base, base - t)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+class MLAttention(nn.Module):
+    """MLA weights in the reference's layout, ``r = q_lora_rank``,
+    ``c = kv_lora_rank``: ``wdq (d, r)``, ``q_norm.scale (r)``,
+    ``wuq (r, h, nope + rope)``, ``wdkv (d, c)``, ``kv_norm.scale (c)``,
+    ``wkr (d, rope)`` (one rope key shared by every head), ``wuk (c, h,
+    nope)``, ``wuv (c, h, v)`` and ``wo (h·v, d)``; uninitialized until
+    :meth:`reset_parameters` or ``load_state_dict``."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        m = cfg.mla
+        d, h = cfg.d_model, cfg.n_heads
+        self.wdq = param((d, m.q_lora_rank), dtype, device)
+        self.q_norm = RMSNorm(m.q_lora_rank, dtype=dtype, device=device)
+        self.wuq = param((m.q_lora_rank, h, m.qk_nope_head_dim + m.qk_rope_head_dim),
+                         dtype, device)
+        self.wdkv = param((d, m.kv_lora_rank), dtype, device)
+        self.kv_norm = RMSNorm(m.kv_lora_rank, dtype=dtype, device=device)
+        self.wkr = param((d, m.qk_rope_head_dim), dtype, device)
+        self.wuk = param((m.kv_lora_rank, h, m.qk_nope_head_dim), dtype, device)
+        self.wuv = param((m.kv_lora_rank, h, m.v_head_dim), dtype, device)
+        self.wo = param((h * m.v_head_dim, d), dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for w in (self.wdq, self.wuq, self.wdkv, self.wkr, self.wuk, self.wuv, self.wo):
+            dense_init_(w, generator, w.shape[0])
+
+
+def mla_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
+             device: torch.device | str) -> MLAttention:
+    m = MLAttention(cfg, dtype=dtype, device=device)
+    m.reset_parameters(generator)
+    return m
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def mla_apply(params: MLAttention, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, causal: bool = True) -> torch.Tensor:
+    """MLA over the whole sequence, positions ``(B, S)``: the queries from
+    the normed ``q_lora`` stream, the keys' nope part and the values from
+    the normed compressed kv, RoPE on the rope parts.  The score
+    ``q_nope·k_nopeᵀ + q_rope·k_ropeᵀ`` is one product of the two parts
+    side by side (the one rope key repeated for every head), in float32
+    through the plain attention route, q-chunked from 4,096 rows as the
+    reference's."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h, rope = cfg.n_heads, m.qk_rope_head_dim
+    q = _heads(params.q_norm(x @ params.wdq), params.wuq)  # (B,H,S,nope+rope)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, rope], dim=-1)
+    q = torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)], dim=-1)
+    ckv = params.kv_norm(x @ params.wdkv)
+    k_rope = apply_rope((x @ params.wkr)[:, None], positions, cfg.rope_theta)  # (B,1,S,rope)
+    k = torch.cat([_heads(ckv, params.wuk), k_rope.expand(b, h, s, rope)], dim=-1)
+    o = _plain_attention(q, k, _heads(ckv, params.wuv), _mla_scale(cfg), causal)
+    return o.transpose(1, 2).reshape(b, s, h * m.v_head_dim) @ params.wo
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
+    """The compressed cache: ``ckv (B, T, kv_lora_rank)``, the rope key
+    ``kr (B, T, rope)`` and ``pos``."""
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "kr": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode(params: MLAttention, cfg: ModelConfig, x: torch.Tensor, cache: dict):
+    """One MLA decode step against the compressed cache, whose slot
+    ``pos % T`` of each row takes the new ``ckv`` and ``kr`` in place; slots
+    below ``min(pos + 1, T)`` are live.  Weight absorption, as the
+    reference: the query times ``W_uk`` meets ``ckv`` directly, and the
+    attended ``ckv`` goes through ``W_uv`` after.  Each product the
+    reference accumulates in float32 runs on float32 copies of its
+    operands (exact for the products); its operands are rounded to x's
+    dtype where the reference casts them."""
+    m = cfg.mla
+    b, h = x.shape[0], cfg.n_heads
+    t = cache["ckv"].shape[1]
+    pos = cache["pos"]
+    dpos = pos[:, None]  # (B, 1)
+    q = _heads(params.q_norm(x @ params.wdq), params.wuq)  # (B,H,1,nope+rope)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, dpos, cfg.rope_theta)
+    ckv_new = params.kv_norm(x @ params.wdkv)  # (B,1,c)
+    kr_new = apply_rope((x @ params.wkr)[:, None], dpos, cfg.rope_theta)[:, 0]  # (B,1,rope)
+    rows, slot = torch.arange(b, device=x.device), (pos % t).long()
+    ckv, kr = cache["ckv"], cache["kr"]
+    ckv[rows, slot] = ckv_new[:, 0]
+    kr[rows, slot] = kr_new[:, 0]
+
+    def rounded(a):  # the reference's cast to x's dtype, held in float32
+        return a.to(x.dtype).float()
+
+    ckv32 = ckv.float()
+    q_abs = torch.einsum("bhqk,rhk->bhqr", q_nope.float(), params.wuk.float())
+    s_ = (torch.einsum("bhqr,btr->bhqt", rounded(q_abs), ckv32)
+          + torch.einsum("bhqk,btk->bhqt", q_rope.float(), kr.float())) * _mla_scale(cfg)
+    live = torch.arange(t, device=x.device)[None, :] < torch.clamp(dpos.long() + 1, max=t)
+    p = torch.softmax(s_.masked_fill_(~live[:, None, None, :], -1e30), dim=-1)
+    o_c = torch.einsum("bhqt,btr->bhqr", rounded(p), ckv32)
+    o = torch.einsum("bhqr,rhk->bhqk", rounded(o_c), params.wuv.float()).to(x.dtype)
+    out = o.transpose(1, 2).reshape(b, 1, h * m.v_head_dim) @ params.wo
+    return out, {"ckv": ckv, "kr": kr, "pos": pos + 1}

@@ -1,14 +1,16 @@
-"""Pre-norm decoder block (RMSNorm or LayerNorm, GQA with a full, sliding
-or local/global window, SwiGLU or GELU MLP, gemma2's optional post norms):
-init, apply, decode and its ring cache.
+"""Pre-norm decoder block (RMSNorm or LayerNorm; GQA with a full, sliding
+or local/global window, or deepseek-v2's MLA; a SwiGLU or GELU MLP, or a
+top-k MoE; gemma2's optional post norms): init, apply, decode and its
+cache.
 
 gemma2's local/global alternation is a per-layer window: local layers
 mask to ``cfg.window``, global layers take a window that masks nothing
 (``s + 1`` in prefill, ``1 << 30`` in decode), and every such layer goes
 through the plain attention route, as the reference's
-``_dynamic_window_attention`` does.  The other blocks of the reference
-(MLA, MoE, the SSM blocks) come with the slices of the models that use
-them.
+``_dynamic_window_attention`` does.  An MoE block runs the sparse
+dispatch in decode, and in prefill the dispatch ``moe_dispatch`` names
+(sparse by default), as the reference's.  The reference's SSM blocks come
+with the slice of the models that use them.
 """
 from __future__ import annotations
 
@@ -16,22 +18,33 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import GQAttention, gqa_apply, gqa_decode
+from repro_torch.models.attention import (
+    GQAttention,
+    MLAttention,
+    gqa_apply,
+    gqa_decode,
+    mla_apply,
+    mla_decode,
+    mla_init_cache,
+)
 from repro_torch.models.common import make_norm
-from repro_torch.models.mlp import MLP, mlp_apply
+from repro_torch.models.mlp import MLP, MoE, mlp_apply, moe_apply, moe_apply_sparse
 
 
 class DecoderBlock(nn.Module):
-    """``ln_attn``, ``attn``, ``ln_mlp``, ``mlp``, and with ``post_norm``
+    """``ln_attn``, ``attn`` (:class:`MLAttention` for ``attn == "mla"``,
+    else :class:`GQAttention`), ``ln_mlp``, ``mlp`` (:class:`MoE` where
+    ``cfg.moe``, else :class:`MLP`), and with ``post_norm``
     ``ln_attn_post`` and ``ln_mlp_post``; uninitialized until
     :meth:`reset_parameters` or ``load_state_dict``."""
 
     def __init__(self, cfg: ModelConfig, *, dtype, device):
         super().__init__()
         self.ln_attn = make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
-        self.attn = GQAttention(cfg, dtype=dtype, device=device)
+        attn = MLAttention if cfg.attn == "mla" else GQAttention
+        self.attn = attn(cfg, dtype=dtype, device=device)
         self.ln_mlp = make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
-        self.mlp = MLP(cfg, dtype=dtype, device=device)
+        self.mlp = (MoE if cfg.moe else MLP)(cfg, dtype=dtype, device=device)
         if cfg.post_norm:
             self.ln_attn_post = make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
             self.ln_mlp_post = make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
@@ -48,10 +61,21 @@ def decoder_block_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
     return blk
 
 
+def _ffn(params: DecoderBlock, cfg: ModelConfig, h, moe_dispatch: str):
+    if not cfg.moe:
+        return mlp_apply(params.mlp, h)
+    if moe_dispatch == "sparse":
+        return moe_apply_sparse(params.mlp, cfg, h)
+    return moe_apply(params.mlp, cfg, h)
+
+
 def decoder_block_apply(params: DecoderBlock, cfg: ModelConfig, x, positions, *,
-                        is_local: bool = False, use_kernel: bool = True):
+                        is_local: bool = False, moe_dispatch: str = "sparse",
+                        use_kernel: bool = True):
     h = params.ln_attn(x)
-    if cfg.attn == "local_global":
+    if cfg.attn == "mla":
+        a = mla_apply(params.attn, cfg, h, positions)
+    elif cfg.attn == "local_global":
         win = cfg.window if is_local else x.shape[1] + 1
         a = gqa_apply(params.attn, cfg, h, positions, window=win, use_kernel=False)
     else:
@@ -61,7 +85,7 @@ def decoder_block_apply(params: DecoderBlock, cfg: ModelConfig, x, positions, *,
     if cfg.post_norm:
         a = params.ln_attn_post(a)
     x = x + a
-    m = mlp_apply(params.mlp, params.ln_mlp(x))
+    m = _ffn(params, cfg, params.ln_mlp(x), moe_dispatch)
     if cfg.post_norm:
         m = params.ln_mlp_post(m)
     return x + m
@@ -69,14 +93,17 @@ def decoder_block_apply(params: DecoderBlock, cfg: ModelConfig, x, positions, *,
 
 def decoder_block_decode(params: DecoderBlock, cfg: ModelConfig, x, cache: dict, *,
                          is_local: bool = False):
-    window = cfg.window if cfg.attn == "swa" else None
-    if cfg.attn == "local_global":
-        window = cfg.window if is_local else 1 << 30
-    a, cache_a = gqa_decode(params.attn, cfg, params.ln_attn(x), cache, window=window)
+    if cfg.attn == "mla":
+        a, cache_a = mla_decode(params.attn, cfg, params.ln_attn(x), cache)
+    else:
+        window = cfg.window if cfg.attn == "swa" else None
+        if cfg.attn == "local_global":
+            window = cfg.window if is_local else 1 << 30
+        a, cache_a = gqa_decode(params.attn, cfg, params.ln_attn(x), cache, window=window)
     if cfg.post_norm:
         a = params.ln_attn_post(a)
     x = x + a
-    m = mlp_apply(params.mlp, params.ln_mlp(x))
+    m = _ffn(params, cfg, params.ln_mlp(x), "sparse")
     if cfg.post_norm:
         m = params.ln_mlp_post(m)
     return x + m, cache_a
@@ -84,7 +111,10 @@ def decoder_block_decode(params: DecoderBlock, cfg: ModelConfig, x, cache: dict,
 
 def decoder_block_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
     """``k`` and ``v`` of ``T`` ring slots, ``T = min(max_len, window)``
-    for a sliding-window arch (the memory win of SWA), else ``max_len``."""
+    for a sliding-window arch (the memory win of SWA), else ``max_len``;
+    for MLA the compressed cache (``attention.mla_init_cache``)."""
+    if cfg.attn == "mla":
+        return mla_init_cache(cfg, batch, max_len, dtype, device)
     hk, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     t = min(max_len, cfg.window) if cfg.attn == "swa" and cfg.window else max_len
     return {

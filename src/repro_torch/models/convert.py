@@ -24,15 +24,23 @@ def _flatten(tree: dict, prefix: str = ""):
             yield name, value
 
 
+# the MoE experts: (in, E, out) in the reference, (E, in, out) in the port
+_EXPERTS = ("mlp.wi", "mlp.wg", "mlp.wo")
+
+
 def params_from_jax(cfg: ModelConfig, tree: dict, *, device=None) -> DecoderLM:
     """The port's model with the weights of ``tree`` (leaves as numpy
-    arrays, any float dtype; cast to ``cfg.dtype``).  Raises if a leaf is
+    arrays, any float dtype), each cast to its parameter's own dtype:
+    ``cfg.dtype``, but float32 for an MoE router, as in the reference.  The
+    experts' axis moves to the front (``mlp.MoE``).  Raises if a leaf is
     missing, extra or of another shape than the port's."""
     state = {}
     for name, leaf in _flatten(tree):
         arr = torch.tensor(np.asarray(leaf, dtype=np.float32))
         if name.startswith("layers."):
             rest = name[len("layers."):]
+            if cfg.moe is not None and rest in _EXPERTS:
+                arr = arr.transpose(1, 2)  # (L, in, E, out) → (L, E, in, out)
             for i in range(arr.shape[0]):
                 state[f"layers.{i}.{rest}"] = arr[i]
         else:

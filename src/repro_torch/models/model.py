@@ -1,11 +1,12 @@
-"""Model assembly of the dense decoder-only LMs (starcoder2-3b,
-phi3-medium-14b, gemma2-2b, stablelm-3b, qwen2-vl-2b).
+"""Model assembly of the decoder-only LMs: the dense ones (starcoder2-3b,
+phi3-medium-14b, gemma2-2b, stablelm-3b, qwen2-vl-2b) and the MoE ones
+(mixtral-8x22b; deepseek-v2-236b with MLA and shared experts).
 
 Public API, as the reference's (over a :class:`DecoderLM` in place of a
 params pytree):
 
     init_params(cfg, generator, device)       → DecoderLM
-    forward(cfg, params, tokens)              → logits (B,S,Vpad) float32
+    forward(cfg, params, tokens, moe_dispatch=…) → logits (B,S,Vpad) float32
     init_cache(cfg, batch, max_len, device)   → cache
     decode_step(cfg, params, tokens, cache)   → (logits, cache)
 
@@ -32,8 +33,6 @@ from repro_torch.models.common import embed_init_, make_norm, pad_vocab, param, 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-_MOE = "the MoE slice (mixtral-8x22b, deepseek-v2-236b)"
-_MLA = "the MLA slice (deepseek-v2-236b)"
 _SSM = "the SSM and hybrid slice (falcon-mamba-7b, zamba2-2.7b)"
 _WHISPER = "the whisper-medium slice"
 
@@ -41,16 +40,14 @@ _WHISPER = "the whisper-medium slice"
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a field of ``cfg`` set to a value
     whose model code is not ported yet, naming the slice that brings it.
-    The port runs the dense decoders: full, sliding-window or local/global
-    GQA with RoPE or M-RoPE and optional softcaps, a SwiGLU or GELU MLP,
+    The port runs the dense and MoE decoders: full, sliding-window or
+    local/global GQA with RoPE or M-RoPE and optional softcaps, or MLA; a
+    SwiGLU or GELU MLP, or a top-k MoE with optional shared experts;
     RMSNorm or LayerNorm with optional post norms, tied or untied
     embeddings."""
-    attn_slice = {"mla": _MLA, "none": _SSM}
     later = (
-        ("attn", cfg.attn not in ("full", "swa", "local_global"),
-         attn_slice.get(cfg.attn, "no slice")),
-        ("moe", cfg.moe is not None, _MOE),
-        ("mla", cfg.mla is not None, _MLA),
+        ("attn", cfg.attn not in ("full", "swa", "local_global", "mla"),
+         _SSM if cfg.attn == "none" else "no slice"),
         ("ssm", cfg.ssm is not None, _SSM),
         ("hybrid_attn_every", cfg.hybrid_attn_every != 0, _SSM),
         ("encoder", cfg.encoder is not None, _WHISPER),
@@ -92,7 +89,8 @@ class DecoderLM(nn.Module):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, *,
                 device=None) -> DecoderLM:
-    """Random init in ``cfg.dtype`` on ``device`` (``cuda`` by default),
+    """Random init in ``cfg.dtype`` (an MoE router in float32, as the
+    reference's) on ``device`` (``cuda`` by default),
     drawn from ``generator`` (a generator on that device; seed 0 when
     None).  Truncated normals as the reference draws them, not its
     numbers: tests take the reference's weights through
@@ -134,20 +132,28 @@ def forward(
     params: DecoderLM,
     tokens: torch.Tensor,  # (B, S) int
     *,
+    moe_dispatch: str = "sparse",
     use_flash_kernel: bool = True,
 ) -> torch.Tensor:
     """Prefill logits ``(B, S, Vpad)`` float32.
+
+    ``moe_dispatch`` picks an MoE layer's dispatch, as the reference's:
+    ``"sparse"`` (the default; each expert takes a capacity of tokens and
+    drops the rest) or ``"dense"`` (every token through every expert,
+    exact).
 
     ``use_flash_kernel`` defaults to True, where the reference's defaults
     to False because there the TPU dry run lowers the jnp path: here on a
     CUDA device every layer's attention runs the hand-written CUDA flash
     kernel, once per layer.  ``use_flash_kernel=False`` asks for the plain
     attention route, for tests and comparisons."""
+    if moe_dispatch not in ("sparse", "dense"):
+        raise ValueError(f"moe_dispatch {moe_dispatch!r} is neither 'sparse' nor 'dense'")
     x = _embed(cfg, params, tokens)
     positions = _positions(cfg, tokens)
     for layer, local in zip(params.layers, _local_pattern(cfg)):
         x = decoder_block_apply(layer, cfg, x, positions, is_local=local,
-                                use_kernel=use_flash_kernel)
+                                moe_dispatch=moe_dispatch, use_kernel=use_flash_kernel)
     return unembed(cfg, params, params.ln_f(x))
 
 
@@ -159,7 +165,8 @@ def unembed(cfg: ModelConfig, params: DecoderLM, x: torch.Tensor) -> torch.Tenso
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> dict:
-    """One ring cache per layer, ``{"layers": [{"k", "v", "pos"}, ...]}``."""
+    """One cache per layer, ``{"layers": [{"k", "v", "pos"}, ...]}`` (MLA:
+    ``{"ckv", "kr", "pos"}``)."""
     check_ported(cfg)
     dev = resolve_device(device)
     return {"layers": [decoder_block_init_cache(cfg, batch, max_len, _DTYPES[cfg.dtype], dev)
@@ -173,8 +180,11 @@ def decode_step(
     cache: dict,
 ) -> tuple[torch.Tensor, dict]:
     """One token for every row of the batch: logits ``(B, 1, Vpad)``
-    float32 and the cache, whose K/V tensors are updated in place.  Plain
-    torch attention, as in the reference: no kernel runs here."""
+    float32 and the cache, whose tensors are updated in place.  Plain
+    torch attention, as in the reference: no kernel runs here.  MoE layers
+    run the sparse dispatch over the batch's B tokens, as the reference's:
+    from B = 2 on, a pair whose expert an earlier row already filled to its
+    capacity is dropped."""
     x = _embed(cfg, params, tokens)
     layers = []
     for layer, lc, local in zip(params.layers, cache["layers"], _local_pattern(cfg)):

@@ -866,6 +866,93 @@ def test_serve_on_card_finishes_every_request(cuda):
     assert flash_counts()["flash_attention"] == 0
 
 
+def _logits_worst(out, ref) -> float:
+    """Worst entry of |out − ref| over |ref| + the mean |ref| of its row."""
+    mag = ref.abs()
+    return float(((out - ref).abs() / (mag + mag.mean(-1, keepdim=True))).max())
+
+
+@pytest.mark.parametrize("moe_dispatch", ["sparse", "dense"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-236b"])
+def test_moe_arch_forward_on_card_matches_plain(cuda, arch, moe_dispatch):
+    """Each MoE arch reduced, float32, s 96 (mixtral's window of 64 bites;
+    the sparse dispatch's 120 slots an expert for 96 pairs on average):
+    mixtral's kernel route launches the kernel once per layer, deepseek's
+    MLA never (the plain route, as in the reference), and the logits are
+    the plain route's within 1e-4 × (|ref| + mean|ref| of the token's
+    row)."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 96), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(5))
+    reset_flash_counts()
+    out = forward(cfg, params, toks, moe_dispatch=moe_dispatch)
+    assert flash_counts()["flash_attention"] == (cfg.n_layers if arch == "mixtral-8x22b" else 0)
+    ref = forward(cfg, params, toks, moe_dispatch=moe_dispatch, use_flash_kernel=False)
+    torch.cuda.synchronize()
+    assert _logits_worst(out, ref) <= 1e-4
+
+
+def test_mixtral_full_width_flash_route_on_card(cuda):
+    """mixtral-8x22b at its published width, cut to 2 layers, float32,
+    dense dispatch, at s 8192 (a quarter of the causal pairs outside its
+    window of 4096): the kernel route launches the kernel twice and gives
+    the plain route's logits within 1e-4 × (|ref| + mean|ref| of the
+    token's row)."""
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=2, dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab, (1, 8192), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(6))
+    reset_flash_counts()
+    out = forward(cfg, params, toks, moe_dispatch="dense")
+    assert flash_counts()["flash_attention"] == 2
+    ref = forward(cfg, params, toks, moe_dispatch="dense", use_flash_kernel=False)
+    torch.cuda.synchronize()
+    mag = ref.abs()
+    mag += mag.mean(-1, keepdim=True)
+    assert float(out.sub_(ref).abs_().div_(mag).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dispatch", ["moe_apply", "moe_apply_sparse"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-236b"])
+def test_moe_bf16_on_card_tracks_its_cpu_float32_result(cuda, arch, dispatch):
+    """A reduced MoE layer in bf16 on the card (float32 router) against the
+    same weights and input in float32 on the CPU, 256 tokens (the sparse
+    dispatch drops pairs past 160 slots an expert): within 4 bf16 ulps
+    (4·2⁻⁷) of max|ref|, and the router stays float32."""
+    from repro_torch.models import mlp
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    card = mlp.moe_init(cfg, torch.bfloat16, generator=torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda)
+    assert card.router.dtype == torch.float32 and card.wi.dtype == torch.bfloat16
+    host = mlp.MoE(dataclasses.replace(cfg, dtype="float32"), dtype=torch.float32, device="cpu")
+    host.load_state_dict({k: v.cpu().float() for k, v in card.state_dict().items()})
+    x = torch.randn((2, 128, cfg.d_model), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda).to(torch.bfloat16)
+    out = getattr(mlp, dispatch)(card, cfg, x)
+    ref = getattr(mlp, dispatch)(host, cfg, x.cpu().float())
+    assert out.dtype == torch.bfloat16
+    assert float((out.cpu().float() - ref).abs().max()) <= 4 * 2.0**-7 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-236b"])
+def test_moe_decode_at_b1_on_card_matches_dense_prefill(cuda, arch):
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab, (1, 24), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(7))
+    full = forward(cfg, params, toks, moe_dispatch="dense")
+    cache = init_cache(cfg, 1, 24, device=cuda)
+    reset_flash_counts()
+    outs = []
+    for t in range(24):
+        logits, cache = decode_step(cfg, params, toks[:, t:t + 1], cache)
+        outs.append(logits[:, 0])
+    assert flash_counts()["flash_attention"] == 0  # decode runs no kernel
+    torch.testing.assert_close(torch.stack(outs, dim=1), full, rtol=2e-3, atol=2e-3)
+
+
 def _contracting_graph():
     """A webStanford surrogate whose plan contracts chains: its core is
     weighted and biased, with the full graph's out-degrees."""

@@ -111,6 +111,35 @@ def test_a_row_with_no_live_key_is_the_mean_of_v_in_the_plain_version():
     torch.testing.assert_close(out[:, :, 9], v.mean(dim=2), atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 6), (False, None)])
+def test_plain_version_evaluates_float64_inputs_in_float64(causal, window):
+    """``chip_smoke.py`` holds the float32 kernel to the plain version
+    evaluated in float64: on float64 inputs it computes in float64 (within
+    1e-12 of a numpy float64 softmax), while float32 inputs still compute
+    in float32, as the reference's."""
+    arrays = _inputs(8, 1, 4, 2, 24, 24, 32)
+    q, k, v = (torch.from_numpy(a).double() for a in arrays)
+    out = attention_ref(q, k, v, scale=32**-0.5, causal=causal, window=window)
+    assert out.dtype == torch.float64
+    qn, kn, vn = (np.repeat(a.astype(np.float64), 2, axis=1) if a.shape[1] == 2
+                  else a.astype(np.float64) for a in arrays)
+    sc = np.einsum("bhqd,bhkd->bhqk", qn, kn) * 32**-0.5
+    d = np.arange(24)[:, None] - np.arange(24)[None, :]
+    live = np.ones((24, 24), bool)
+    if causal:
+        live &= d >= 0
+    if window is not None:
+        live &= d < window
+    sc = np.where(live, sc, -np.inf)
+    p = np.exp(sc - sc.max(-1, keepdims=True))
+    want = np.einsum("bhqk,bhkd->bhqd", p / p.sum(-1, keepdims=True), vn)
+    np.testing.assert_allclose(out.numpy(), want, atol=1e-12, rtol=0)
+    out32 = attention_ref(*_port(arrays, "float32"), scale=32**-0.5, causal=causal,
+                          window=window)
+    assert out32.dtype == torch.float32
+    assert 0 < float((out32.double() - out).abs().max()) < 1e-5
+
+
 def test_default_scale_is_inverse_sqrt_head_dim():
     q, k, v = _port(_inputs(3, 1, 2, 1, 16, 16, 32), "float32")
     torch.testing.assert_close(flash_attention(q, k, v),

@@ -78,13 +78,13 @@ def tokens(seed, b, s, vocab):
 
 
 def test_config_is_a_copy_of_the_reference():
-    """The five dense archs, in the reference's order, each config and its
-    reduced config (the window cut to 64 included) equal to the
-    reference's."""
+    """The five dense and the two MoE archs, in the reference's order, each
+    config and its reduced config (the window cut to 64 and the MoE and
+    MLA sub-configs shrunk included) equal to the reference's."""
     from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 
     assert ARCH_IDS == ("starcoder2-3b", "phi3-medium-14b", "gemma2-2b", "stablelm-3b",
-                        "qwen2-vl-2b")
+                        "qwen2-vl-2b", "mixtral-8x22b", "deepseek-v2-236b")
     assert ARCH_IDS == tuple(a for a in JAX_ARCH_IDS if a in ARCH_IDS)
     for arch in ARCH_IDS:
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))
@@ -92,9 +92,11 @@ def test_config_is_a_copy_of_the_reference():
             dataclasses.asdict(jax_get_config(arch).reduced())
     assert get_config("starcoder2-3b").reduced().window == 64
     assert get_config("gemma2-2b").reduced().window == 64
+    assert get_config("deepseek-v2-236b").reduced().moe.n_shared == 1
+    assert get_config("deepseek-v2-236b").reduced().head_dim == 0
     assert dataclasses.asdict(reduced(get_config)) == dataclasses.asdict(reduced(jax_get_config))
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("mixtral-8x22b")
+        get_config("falcon-mamba-7b")
 
 
 def test_full_width_parameter_count():
@@ -353,18 +355,36 @@ def test_cpu_forward_launches_no_kernel(cfg, params):
 ])
 def test_unported_config_fields_raise(field, value, slice_, cfg):
     """check_ported names the field and the slice that brings it, and
-    every entry point that builds a model or a cache calls it."""
+    every entry point that builds a model or a cache calls it.  The MoE and
+    MLA fields are ported: on qwen2-vl-2b's reduced config (plain RoPE
+    positions for MLA, which takes no M-RoPE; ``attn="mla"`` with the
+    reference's reduced MLA config) they build, prefill and decode."""
     from repro_torch.configs import EncoderConfig, MLAConfig, MoEConfig, SSMConfig
 
     fill = {"moe": MoEConfig(4, 2, 64), "mla": MLAConfig(64, 32, 32, 16, 32),
             "ssm": SSMConfig("mamba1", 16), "encoder": EncoderConfig(2, 64, 128)}
     c = dataclasses.replace(cfg, **{field: fill[field] if value == "set" else value})
-    for build in (check_ported, lambda c: init_params(c, device=CPU),
-                  lambda c: init_cache(c, 1, 8, device=CPU)):
-        with pytest.raises(NotImplementedError, match=f"{field}=.*{slice_}"):
-            build(c)
+    if slice_ in ("MoE", "MLA"):
+        if c.attn == "mla":
+            c = dataclasses.replace(c, mla=fill["mla"], mrope=False, head_dim=0)
+        check_ported(c)
+        model = init_params(c, torch.Generator().manual_seed(0), device=CPU)
+        assert type(model.layers[0].attn).__name__ == (
+            "MLAttention" if c.attn == "mla" else "GQAttention")
+        assert type(model.layers[0].mlp).__name__ == ("MoE" if c.moe else "MLP")
+        toks = torch.from_numpy(tokens(12, 2, 8, c.vocab))
+        logits = forward(c, model, toks)
+        cache = init_cache(c, 2, 8, device=CPU)
+        step, _ = decode_step(c, model, toks[:, :1], cache)
+        assert logits.shape == (2, 8, 512) and step.shape == (2, 1, 512)
+        assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all())
+    else:
+        for build in (check_ported, lambda c: init_params(c, device=CPU),
+                      lambda c: init_cache(c, 1, 8, device=CPU)):
+            with pytest.raises(NotImplementedError, match=f"{field}=.*{slice_}"):
+                build(c)
     check_ported(cfg)  # qwen2-vl-2b's own fields pass
-    for arch in ARCH_IDS:  # and every dense arch's
+    for arch in ARCH_IDS:  # and every ported arch's
         check_ported(get_config(arch))
 
 

@@ -131,7 +131,10 @@ Phases, one or more lines each; any failure exits non-zero:
                queries: rounds, pushes, the L1 certificate, wall; every
                estimate at or below the oracle, every top-10 the oracle's
                up to the certificate;
-    build   — the out-of-core build pipeline through the launcher's build:
+    build   — (run after phase 21, with store and faults; its two
+               children start before phase 15 and stream to disk while
+               phases 15–21 use the card) the out-of-core build
+               pipeline through the launcher's build:
                at 1/16 of socLiveJournal1, an unordered build's raw store
                has the array files and CRC-32s of make_dataset's cache
                entry, and reorder_store of that entry equals a BFS build;
@@ -220,7 +223,19 @@ Phases, one or more lines each; any failure exits non-zero:
                their gate margins and left out (a first flip above
                FLIP_MARGIN fails); decode at b 1 against the dense
                prefill; the f32 engine at 1 slot, every pick forward's
-               argmax, and at 4 slots, every request finished.
+               argmax, and at 4 slots, every request finished;
+21. ssm     — phase 19's checks for the SSM and hybrid decoders at their
+               published widths and depths (SSM_LMS), every layer on the
+               card: falcon-mamba-7b (64 Mamba-1 layers, b 2, s 4096; no
+               attention, no launch) and zamba2-2.7b (54 Mamba-2 layers, b
+               2, s 4096; its shared block after every 6 launches
+               flash_attention 9 times at stablelm-3b's shape); the
+               logits' range; the trace (falcon-mamba-7b's on its first 2
+               layers), the launches a prefill and the scan's share of
+               the device time from one layer and its scan traced alone;
+               the f32 checks and decode on the first 16 and 18 layers
+               (for time: a float32 copy of all fits); then serve
+               --preset full for both.
 
 Each phase ends with its host wall on a line ``phase <name>: wall_s=``.
 It then prints one JSON line naming every kernel (its ``timed_by`` says
@@ -366,6 +381,23 @@ MOE_LMS = (
     ("mixtral-8x22b", 1, 8192, 4, 2),
     # 33.9 GB in bf16, the f32 checks 20.1 GB (with the f32 embedding and head)
     ("deepseek-v2-236b", 1, 4096, 4, 1),
+)
+# the SSM and hybrid decoders at their published widths and depths: (arch,
+# prefill b, s, layers of the float32 checks, layers traced (None: all)).
+# A float32 copy of every layer fits beside either bf16 model (29.1 GB
+# beside 14.5, 9.7 beside 4.8), but with the checks at full depth the
+# script took 1,137 s of its 1,200 on an H100 whose host ran the earlier
+# phases 1.2x slower than usual (the ssm phases 107 s of it), so they run
+# on the first quarter and third of the layers.
+# zamba2-2.7b's shared block runs flash_attention at stablelm-3b's
+# prefill shape (b 2, hq = hkv = 32, s 4096, dh 80, causal), which
+# FLASH_TIMED already checks and times: no timed shape of its own.
+SSM_LMS = (
+    # a prefill runs ~270k device ops (one a token a layer in the scan);
+    # the profiler takes seconds a thousand of them: traced on 2 layers
+    ("falcon-mamba-7b", 2, 4096, 16, 2),
+    # 3 of its 9 groups, each with the shared block after it
+    ("zamba2-2.7b", 2, 4096, 18, None),
 )
 MOE_SERVE_LEN = 160  # one slot serves the launcher's 6 requests, ~125 decode calls
 SERVE_TIE = 1e-4  # top-2 logit gap under which either token is greedy's pick
@@ -2237,13 +2269,13 @@ print(json.dumps(dict(rep, sampled_peak=peak[0], status=mem,
 """
 
 
-def rss_child(argv: list[str]) -> dict:
+def rss_child(argv: list[str], echo: bool = True) -> dict:
     """RSS_CHILD on ``argv`` in a child process; returns its report (for
     ``build``: stages, n, m, nbytes), its peak RSS in bytes as the child
     read it (``sampled_peak``, ``hwm``: None where not measured;
     ``maxrss`` as getrusage reports it; ``status``: /proc/self/status's
-    memory lines at its end) and the child's wall (``wall_s``).  The
-    child's own output lines are printed indented."""
+    memory lines at its end), the child's wall (``wall_s``) and its own
+    output lines (``lines``), which ``echo`` prints indented."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(ROOT, "src")] + [p for p in [env.get("PYTHONPATH")] if p])
@@ -2251,16 +2283,39 @@ def rss_child(argv: list[str]) -> dict:
     out = subprocess.run([sys.executable, "-c", RSS_CHILD, *argv], env=env,
                          capture_output=True, text=True, timeout=BUILD_CHILD_TIMEOUT)
     lines = out.stdout.splitlines()
-    for line in lines[:-1]:
-        print(f"  {line}")
+    if echo:
+        for line in lines[:-1]:
+            print(f"  {line}")
     check(out.returncode == 0 and bool(lines),
           f"child {argv}: exit {out.returncode}: {out.stderr[-3000:]}")
     rep = json.loads(lines[-1])
     rep["wall_s"] = time.perf_counter() - t0
+    rep["lines"] = lines[:-1]
     return rep
 
 
-def build_phase(g_ws, dev):
+def start_build_children():
+    """Step 2 of :func:`build_phase`, started early: the two host processes
+    that stream socLiveJournal1 at full size to disk under BUILD_DIR
+    (``--stages generate``, then the resume), one after the other in a
+    thread, so that they run while the LM phases use the card (they touch
+    no GPU; the build phase's own wall once took 320–440 s of a 1,200 s
+    budget, most of it in them).  Returns the future of their two
+    reports; :func:`build_phase` waits for it."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    shutil.rmtree(BUILD_DIR, ignore_errors=True)
+    argv = ["build", "--dataset", STORE_DATASET, "--scale-down", "1", "--order", "bfs",
+            "--out", os.path.join(BUILD_DIR, STORE_DATASET)]
+    pool = ThreadPoolExecutor(1)
+    children = pool.submit(lambda: (rss_child(argv + ["--stages", "generate"], echo=False),
+                                    rss_child(argv, echo=False)))
+    pool.shutdown(wait=False)
+    return children
+
+
+def build_phase(g_ws, dev, children):
     """The out-of-core build pipeline through the launcher's ``build``.
 
     1. Parity at 1/BUILD_PARITY_SCALE_DOWN of socLiveJournal1: an
@@ -2268,7 +2323,8 @@ def build_phase(g_ws, dev):
        ``make_dataset``'s cache entry (the in-RAM path), and
        ``reorder_store`` of that entry gives the reordered arrays and perm
        of a BFS build.
-    2. Full size, streamed, in two child processes: ``--stages generate``,
+    2. Full size, streamed, in two child processes (``children``, from
+       :func:`start_build_children`): ``--stages generate``,
        then a resume that skips generate and runs the BFS reorder and the
        layout; each stage's wall and each child's peak RSS beside 16·m
        bytes (the int64 edge list the in-RAM path holds).  The raw store
@@ -2300,7 +2356,6 @@ def build_phase(g_ws, dev):
     def under(name):
         return os.path.join(BUILD_DIR, name)
 
-    shutil.rmtree(BUILD_DIR, ignore_errors=True)
     try:
         # 1. parity with the in-RAM path at a cut size
         sd = BUILD_PARITY_SCALE_DOWN
@@ -2341,10 +2396,12 @@ def build_phase(g_ws, dev):
 
         # 2. full size, streamed, generate and then a resume in two children
         out = under(STORE_DATASET)
-        argv = ["build", "--dataset", STORE_DATASET, "--scale-down", "1",
-                "--order", "bfs", "--out", out]
-        first = rss_child(argv + ["--stages", "generate"])
-        second = rss_child(argv)
+        t0 = time.perf_counter()
+        first, second = children.result()
+        print(f"build children (started before the flash phase): waited "
+              f"{time.perf_counter() - t0:.1f}s for them", flush=True)
+        for line in first["lines"] + second["lines"]:
+            print(f"  {line}")
         check(list(first["stages"]) == ["generate"]
               and not first["stages"]["generate"]["skipped"],
               f"build --stages generate ran {first['stages']}")
@@ -2919,6 +2976,130 @@ def first_layers(cfg, params, n_layers: int):
     return sub, model
 
 
+def attention_layers(cfg) -> int:
+    """Attention layers a prefill runs: every layer of a decoder, each
+    application of a hybrid's shared block, none in a pure SSM."""
+    if cfg.hybrid_attn_every:
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return 0 if cfg.ssm is not None else cfg.n_layers
+
+
+def device_launches(rows) -> int:
+    """Device ops (kernels, copies, sets) in a trace's device rows."""
+    return 0 if rows is None else sum(e.count for e in rows)
+
+
+SCAN_LABEL = "ssm scan"
+
+
+def labelled_trace(fn, scan_name: str):
+    """Run ``fn`` once under the profiler with ``ssm.<scan_name>`` inside a
+    ``record_function`` range.  Returns the traced wall in ms, the device
+    rows by self time without the range's own (None when the trace holds
+    no device time: not measured), and the scans' device ms, device ops
+    and host ms, every call summed.  Their device time is taken from the
+    kernels launched inside the ranges, where a trace of the scan alone
+    (a few milliseconds of work on Mamba-2) may hold no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import ssm
+
+    scan = getattr(ssm, scan_name)
+
+    def labelled(*args, **kw):
+        with record_function(SCAN_LABEL):
+            return scan(*args, **kw)
+
+    def ops_under(e) -> int:
+        return len(e.kernels) + sum(ops_under(c) for c in e.cpu_children)
+
+    setattr(ssm, scan_name, labelled)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        setattr(ssm, scan_name, scan)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key != SCAN_LABEL]
+    ranges = [e for e in prof.events()
+              if e.name == SCAN_LABEL and e.device_type == DeviceType.CPU]
+    scans = {"ms": sum(e.device_time_total for e in ranges) / 1e3,
+             "ops": sum(ops_under(e) for e in ranges),
+             "host_ms": sum(e.cpu_time_total for e in ranges) / 1e3}
+    if not rows:
+        return wall_ms, None, scans
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    return wall_ms, rows, scans
+
+
+def ssm_trace(arch: str, cfg, params, toks, trace_layers: int | None):
+    """The bf16 prefill of an SSM or hybrid model traced once, its scans
+    labelled (:func:`labelled_trace`; on its first ``trace_layers`` layers
+    where a full prefill's ops are more than the profiler records in
+    reasonable time), then one SSM layer alone (``ssm_block_apply`` of
+    layer 0 on the embedded tokens), labelled the same way and run often
+    enough in one trace for ~50 ms of device work: a trace of a few
+    milliseconds may lose its device events.  Prints the trace; one
+    layer's device ops and time and its scan's, with the scan's device
+    time over its host time (below 1: its launches bound it); the device
+    ops a prefill at full depth and the scan's share of its device time,
+    a cut prefill's extrapolated by one layer for each layer left out."""
+    from repro_torch.models.blocks import ssm_block_apply
+    from repro_torch.models.model import forward
+
+    name = f"{cfg.ssm.variant}_scan"
+    sub_cfg, sub = (cfg, params) if trace_layers is None else first_layers(cfg, params,
+                                                                           trace_layers)
+    wall_ms, rows, scans = labelled_trace(lambda: forward(sub_cfg, sub, toks), name)
+    busy_ms = None if rows is None else sum(e.self_device_time_total for e in rows) / 1e3
+    route = "kernel route" if attention_layers(cfg) else "no attention"
+    cut = "" if trace_layers is None else f", first {trace_layers} of {cfg.n_layers} layers"
+    print_trace(f"lm prefill {arch} (bf16, {route}{cut})", wall_ms, busy_ms, rows, top=8,
+                extra=f"device ops={device_launches(rows)} ")
+    if rows is None or not scans["ops"]:
+        print(f"lm: {arch} scan share: not measured (the prefill's trace held no device event "
+              f"of {'it' if rows is None else 'its scans'})")
+        return
+    reps = max(1, int(50 // (busy_ms / len(sub.layers))))
+    x = params.embed[toks.long()]
+
+    def layers():
+        for _ in range(reps):
+            ssm_block_apply(params.layers[0], cfg, x)
+
+    _, layer_rows, layer_scans = labelled_trace(layers, name)
+    del x
+    layer = None
+    if layer_rows is not None and layer_scans["ops"]:
+        layer = {"n": device_launches(layer_rows) / reps,
+                 "busy": sum(e.self_device_time_total for e in layer_rows) / 1e3 / reps,
+                 **{k: v / reps for k, v in layer_scans.items()}}
+        print(f"lm: {arch} one SSM layer (b={toks.shape[0]}, s={toks.shape[1]}; {reps} traced "
+              f"in one run): {layer['n']:.1f} device ops, busy {layer['busy']:.3f} ms; its "
+              f"{name}: {layer['ops']:.1f} device ops, {layer['ms']:.3f} ms on the device "
+              f"against {layer['host_ms']:.3f} ms on the host, traced (ratio "
+              f"{layer['ms'] / layer['host_ms']:.3f}: above 1 the device bounds it, below 1 "
+              f"its launches)", flush=True)
+    extra = len(params.layers) - len(sub.layers)  # layers the cut left out
+    if extra and layer is None:
+        print(f"lm: {arch} scan share: not measured (the layer's trace held no device event "
+              f"of it or its scan)")
+        return
+    launches = device_launches(rows) + (extra * layer["n"] if extra else 0)
+    scan_ops = scans["ops"] + (extra * layer["ops"] if extra else 0)
+    busy = busy_ms + (extra * layer["busy"] if extra else 0)
+    scan_ms = scans["ms"] + (extra * layer["ms"] if extra else 0)
+    print(f"lm: {arch} bf16 prefill at all {cfg.n_layers} layers: {launches:.0f} device ops "
+          f"({scan_ops:.0f} in the scan, {scan_ops / launches:.3f}); the scan's share of the "
+          f"device time {scan_ms / busy:.3f} ({scan_ms:.3f} of {busy:.3f} ms"
+          f"{'' if not extra else ', the cut extrapolated by one layer each'})", flush=True)
+
+
 @contextlib.contextmanager
 def recorded_routing():
     """Record every MoE routing made inside, layer after layer: a list of
@@ -2995,16 +3176,19 @@ def dropped_pairs(cfg, routing) -> list[int]:
 
 
 def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None,
-             layers: int | None = None):
+             layers: int | None = None, trace_layers: int | None = None):
     """``arch`` at its published width from a seeded generator (its first
     ``layers`` layers where the published depth does not fit the card):
     bf16 prefill at (b, s) on the kernel route (flash_attention once per
-    GQA layer, the main path; gemma2-2b's softcapped attention and
-    deepseek-v2-236b's MLA none: the plain route, as in the reference), its
-    trace, and the plain route; float32 on the same weights (the first
-    ``f32_layers`` layers where a float32 copy of all would not fit beside
-    the bf16 model), kernel against plain route; the bf16 routes against
-    the float32 forward; DECODE_STEPS float32 decode steps against prefill.
+    GQA layer or application of a hybrid's shared block, the main path;
+    gemma2-2b's softcapped attention and deepseek-v2-236b's MLA none: the
+    plain route, as in the reference; a pure SSM has no attention), its
+    trace (an SSM's by :func:`ssm_trace`, on its first ``trace_layers``
+    layers where given), and the plain route; float32 on the same weights
+    (the first ``f32_layers`` layers where a float32 copy of all would not
+    fit beside the bf16 model), kernel against plain route; the bf16 routes
+    against the float32 forward; DECODE_STEPS float32 decode steps against
+    prefill.
 
     An MoE arch's prefill runs the sparse dispatch, whose dropped pairs
     are counted; its checks run the dense dispatch (no drops), at b 1 for
@@ -3027,7 +3211,8 @@ def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None,
     moe = cfg.moe is not None
     check(not moe or b == 1, f"{arch}: decode is checked against prefill at b 1 only")
     disp = "dense" if moe else "sparse"  # the dispatch of the checks
-    kernel_route = cfg.attn_softcap is None and cfg.attn != "mla"
+    attn_layers = attention_layers(cfg)
+    kernel_route = cfg.attn_softcap is None and cfg.attn != "mla" and attn_layers > 0
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
@@ -3035,10 +3220,18 @@ def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None,
     window = "" if cfg.window is None else f" window {cfg.window}"
     ffn = (f"MoE {cfg.moe.n_experts} experts top {cfg.moe.top_k} of d_ff "
            f"{cfg.moe.d_ff_expert} (+{cfg.moe.n_shared} shared)" if moe else cfg.mlp)
-    print(f"lm: {arch} {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, attn {cfg.attn}"
-          f"{window}, {cfg.norm}, {ffn}, {n_params} parameters in {cfg.dtype}, random "
-          f"init in {time.perf_counter() - t0:.1f}s", flush=True)
+    stack = (f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, attn "
+             f"{cfg.attn}{window}, {cfg.norm}, {ffn}")
+    if cfg.ssm is not None:
+        sc = cfg.ssm
+        width = f"head dim {sc.headdim}" if sc.variant == "mamba2" else f"dt rank {sc.dt_rank}"
+        ssm_desc = (f"{sc.variant} layers (state {sc.state}, conv {sc.conv}, expand "
+                    f"{sc.expand}, {width}), {cfg.norm}")
+        stack = (f"{ssm_desc}, a shared block after every {cfg.hybrid_attn_every} ({stack})"
+                 if cfg.hybrid_attn_every else f"{ssm_desc}, no attention")
+    print(f"lm: {arch} {cfg.n_layers} layers, d_model {cfg.d_model}, {stack}, {n_params} "
+          f"parameters in {cfg.dtype}, random init in {time.perf_counter() - t0:.1f}s",
+          flush=True)
     if layers is not None:
         per_layer = sum(p.numel() for p in params.layers[0].parameters())
         rest = n_params - layers * per_layer
@@ -3065,9 +3258,9 @@ def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None,
     torch.cuda.synchronize()
     walls.append(time.perf_counter() - t0)
     launches = fa.launch_counts()["flash_attention"]
-    want = cfg.n_layers if kernel_route else 0
+    want = attn_layers if kernel_route else 0
     check(launches == want, f"{arch} prefill launched flash_attention {launches} "
-          f"times, expected {want} ({'one per layer' if kernel_route else 'plain route'})")
+          f"times, expected {want} ({'one per attention layer' if kernel_route else 'plain route'})")
     check(all(n == 0 for n in spmv.launch_counts().values()), "prefill ran an spmv kernel")
     check(tuple(bf16_kernel.shape) == (b, s, pad_vocab(cfg.vocab))
           and bf16_kernel.dtype == torch.float32
@@ -3088,9 +3281,10 @@ def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None,
         routes = (f"kernel route {n_tok / min(walls):.0f} tok/s (runs {runs} s), plain route "
                   f"{n_tok / min(plain_walls):.0f} tok/s (runs "
                   f"{', '.join(f'{w:.4f}' for w in plain_walls)} s)")
-    else:  # softcapped attention or MLA: the plain route is the path, as in the reference
+    else:  # softcapped attention, MLA or none: the plain route is the path, as in the reference
         bf16_plain = bf16_kernel
-        why = "MLA" if cfg.attn == "mla" else "softcapped attention"
+        why = ("no attention" if not attn_layers else "MLA" if cfg.attn == "mla"
+               else "softcapped attention")
         routes = (f"plain route only ({why}, as the reference) "
                   f"{n_tok / min(walls):.0f} tok/s (runs {runs} s)")
     pairs = ""
@@ -3099,6 +3293,9 @@ def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None,
         check(live < every, f"{arch}: the window masks nothing at s {s}")
         pairs = (f"; {live} of {every} causal (q, k) pairs a head live "
                  f"({1 - live / every:.4f} outside the window)")
+    if cfg.ssm is not None:  # random weights at depth: how far the residual stream grew
+        pairs += (f"; logits in [{float(bf16_kernel.min()):.3f}, {float(bf16_kernel.max()):.3f}],"
+                  f" std {float(bf16_kernel.std()):.3f}")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"lm: {arch} bf16 prefill b={b} s={s}: {routes}; flash_attention launches per "
           f"prefill {launches}; peak memory {peak / 2**30:.2f} GiB{pairs}", flush=True)
@@ -3115,9 +3312,12 @@ def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None,
               f"{sum(drops)} of {total_pairs * cfg.n_layers} "
               f"({sum(drops) / (total_pairs * cfg.n_layers):.4f})", flush=True)
         del routing
-    _, wall_ms, busy_ms, rows = traced(lambda: forward(cfg, params, toks))
-    print_trace(f"lm prefill {arch} (bf16, {'kernel' if kernel_route else 'plain'} route)",
-                wall_ms, busy_ms, rows, top=10 if moe else 8)
+    if cfg.ssm is not None:
+        ssm_trace(arch, cfg, params, toks, trace_layers)
+    else:
+        _, wall_ms, busy_ms, rows = traced(lambda: forward(cfg, params, toks))
+        print_trace(f"lm prefill {arch} (bf16, {'kernel' if kernel_route else 'plain'} route)",
+                    wall_ms, busy_ms, rows, top=10 if moe else 8)
 
     # float32 on the same weights, TF32 off; on the first f32_layers layers
     # where the f32 copy would not fit beside the bf16 model, whose other
@@ -3230,9 +3430,8 @@ def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None,
           f"worst entry {dworst:.4f}x the bound (atol = rtol = {DECODE_TOL:g}); "
           f"no kernel launched{flips}", flush=True)
     _, wall_ms, busy_ms, rows = traced(lambda: decode_step(cfg32, params32, dtoks[:, :1], cache))
-    launched = 0 if rows is None else sum(e.count for e in rows)
     print_trace(f"lm decode step {arch} (f32)", wall_ms, busy_ms, rows,
-                extra=f"device ops={launched} ")
+                extra=f"device ops={device_launches(rows)} ")
     print(f"lm: {arch} peak memory from the prefill on "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB", flush=True)
     return launches, cfg32, params32
@@ -3378,6 +3577,24 @@ def moe_phase(dev) -> dict:
     return fa_paths
 
 
+def ssm_phase(dev) -> dict:
+    """The SSM and hybrid decoders (SSM_LMS) at their published widths and
+    depths: :func:`lm_phase` (zamba2-2.7b's prefill launches
+    flash_attention once per application of its shared block,
+    falcon-mamba-7b's none), then :func:`serve_full`.  Returns the flash
+    launches of each prefill that has them."""
+    fa_paths = {}
+    for arch, b, s, f32_layers, trace_layers in SSM_LMS:
+        torch.cuda.empty_cache()
+        with phase_wall(f"ssm {arch}"):
+            n = lm_phase(dev, arch, b, s, f32_layers, trace_layers=trace_layers)[0]
+            torch.cuda.empty_cache()
+            serve_full(arch)
+        if n:
+            fa_paths[f"{arch} prefill"] = n
+    return fa_paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3463,15 +3680,9 @@ def main() -> int:
         # at full size
         push_phase(g, oracle, sorted({_key(q.seeds) for q in queries[:PPR_ROWS]}))
     del gw, oracle
-    with phase_wall("build"):
-        build_stats, bfs_stats, paths = build_phase(g, dev)
-        for kernel, by_path in paths.items():
-            launches[kernel].update(by_path)
-    with phase_wall("store"):
-        launches["gs_pass"].update(store_phase(g, dev))
-    with phase_wall("faults"):
-        faults_phase(g, dev)
-    del g
+    # the build phase's two host children stream socLiveJournal1 to disk
+    # while the flash and LM phases use the card
+    children = start_build_children()
     with phase_wall("flash"):
         flash = flash_kernel_phase(dev)
     fa_paths = {}  # {prefill of a model: flash launches}
@@ -3492,6 +3703,17 @@ def main() -> int:
         for arch in DENSE_SERVED:
             serve_full(arch)
     fa_paths.update(moe_phase(dev))
+    fa_paths.update(ssm_phase(dev))
+    torch.cuda.empty_cache()
+    with phase_wall("build"):
+        build_stats, bfs_stats, paths = build_phase(g, dev, children)
+        for kernel, by_path in paths.items():
+            launches[kernel].update(by_path)
+    with phase_wall("store"):
+        launches["gs_pass"].update(store_phase(g, dev))
+    with phase_wall("faults"):
+        faults_phase(g, dev)
+    del g
 
     replaces = {"spmv_csr_acc": "src/repro/kernels/spmv/kernel.py:67",
                 "gs_pass": "src/repro/kernels/spmv/kernel.py:181",

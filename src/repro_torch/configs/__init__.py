@@ -2,9 +2,11 @@
 
 A copy of the reference's ``repro.configs`` cut to the architectures whose
 model code is ported: the five dense decoders (starcoder2-3b,
-phi3-medium-14b, gemma2-2b, stablelm-3b, qwen2-vl-2b) and the two MoE
-decoders (mixtral-8x22b, deepseek-v2-236b with MLA), in the reference's
-order.  Later slices add an arch together with the model code it needs.
+phi3-medium-14b, gemma2-2b, stablelm-3b, qwen2-vl-2b), the hybrid
+zamba2-2.7b (Mamba-2 with a shared attention block), the pure-SSM
+falcon-mamba-7b (Mamba-1) and the two MoE decoders (mixtral-8x22b,
+deepseek-v2-236b with MLA), in the reference's order.  whisper-medium
+comes with the slice that ports its encoder-decoder.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ _ARCH_MODULES = {
     "phi3-medium-14b": "phi3_medium_14b",
     "gemma2-2b": "gemma2_2b",
     "stablelm-3b": "stablelm_3b",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
     "qwen2-vl-2b": "qwen2_vl_2b",
     "mixtral-8x22b": "mixtral_8x22b",
     "deepseek-v2-236b": "deepseek_v2_236b",

@@ -80,13 +80,14 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """CI-sized config of the same family for smoke tests: the
-        reference's ``reduced`` for the fields of a dense or MoE decoder
-        (the sliding window cut to at most 64, the MoE and MLA sub-configs
-        shrunk as the reference shrinks them).  The reference also shrinks
-        the SSM and encoder sub-configs; those come with the slices that
-        port their models."""
+        reference's ``reduced`` for the fields of a dense, MoE, SSM or
+        hybrid decoder (the sliding window cut to at most 64; the MoE, MLA
+        and SSM sub-configs shrunk as the reference shrinks them; a hybrid
+        cut to 4 layers, a shared block every 2).  The reference also
+        shrinks the encoder sub-config; that comes with the whisper-medium
+        slice."""
         changes: dict = dict(
-            n_layers=min(self.n_layers, 2),
+            n_layers=min(self.n_layers, 2 if not self.hybrid_attn_every else self.hybrid_attn_every + 1),
             d_model=128,
             n_heads=4,
             n_kv_heads=max(1, min(self.n_kv_heads, 2)) if self.n_kv_heads < self.n_heads else 4,
@@ -100,10 +101,17 @@ class ModelConfig:
                 n_experts=4, top_k=min(self.moe.top_k, 2), d_ff_expert=64,
                 n_shared=min(self.moe.n_shared, 1),
             )
+        if self.ssm:
+            changes["ssm"] = SSMConfig(
+                variant=self.ssm.variant, state=16, conv=4, expand=2, headdim=32, dt_rank=8,
+            )
         if self.mla:
             changes["mla"] = MLAConfig(
                 q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
                 qk_rope_head_dim=16, v_head_dim=32,
             )
             changes["head_dim"] = 0
+        if self.hybrid_attn_every:
+            changes["hybrid_attn_every"] = 2
+            changes["n_layers"] = 4
         return dataclasses.replace(self, **changes)

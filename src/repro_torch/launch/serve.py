@@ -4,20 +4,24 @@ on the GPU by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --preset full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --preset full
 
-``--arch`` is any of the port's archs, dense or MoE (qwen2-vl-2b by
-default).  ``--preset tiny`` (the default) serves the arch's reduced
-float32 config; ``--preset full`` serves it at its published width and
-depth in its own dtype (qwen2-vl-2b: 28 layers, d_model 1536, bf16), from
-random weights drawn from a seeded generator.  The MoE archs at their
-published depth do not fit one card (mixtral-8x22b 281 GB, deepseek-v2-236b
-479 GB in bf16; the reference shards them over a TPU mesh): serve them
-with ``--preset tiny``.  Requests are drawn as the reference's launcher
-draws them.  Prompts are prefilled by teacher-forced decode steps and
-decode attention is plain torch, as in the reference: no CUDA kernel runs
-here (the flash kernel serves ``models.forward``).  An MoE arch's decode
-runs the sparse dispatch over every slot's token, as the reference's, so
-at more than one slot a request's tokens depend on the other slots'.
+``--arch`` is any of the port's archs: dense, MoE, SSM (falcon-mamba-7b)
+or hybrid (zamba2-2.7b); qwen2-vl-2b by default.  ``--preset tiny`` (the
+default) serves the arch's reduced float32 config; ``--preset full``
+serves it at its published width and depth in its own dtype (qwen2-vl-2b:
+28 layers, d_model 1536, bf16), from random weights drawn from a seeded
+generator.  The MoE archs at their published depth do not fit one card
+(mixtral-8x22b 281 GB, deepseek-v2-236b 479 GB in bf16; the reference
+shards them over a TPU mesh): serve them with ``--preset tiny``.
+falcon-mamba-7b (14.5 GB in bf16) and zamba2-2.7b (4.9 GB) serve whole
+with ``--preset full``.  Requests are drawn as the reference's launcher
+draws them.  Prompts are prefilled by teacher-forced decode steps, and
+decode attention and the SSM steps are plain torch, as in the reference:
+no CUDA kernel runs here (the flash kernel serves ``models.forward``).
+An MoE arch's decode runs the sparse dispatch over every slot's token, as
+the reference's, so at more than one slot a request's tokens depend on
+the other slots'.
 """
 from __future__ import annotations
 

@@ -9,8 +9,11 @@ mask to ``cfg.window``, global layers take a window that masks nothing
 through the plain attention route, as the reference's
 ``_dynamic_window_attention`` does.  An MoE block runs the sparse
 dispatch in decode, and in prefill the dispatch ``moe_dispatch`` names
-(sparse by default), as the reference's.  The reference's SSM blocks come
-with the slice of the models that use them.
+(sparse by default), as the reference's.
+
+An SSM block (falcon-mamba-7b's Mamba-1, zamba2-2.7b's Mamba-2) is
+``x + ssm(norm(x))``: init, apply, decode and its cache, as the
+reference's ``ssm_block_*``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,16 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.common import make_norm
 from repro_torch.models.mlp import MLP, MoE, mlp_apply, moe_apply, moe_apply_sparse
+from repro_torch.models.ssm import (
+    Mamba1,
+    Mamba2,
+    mamba1_apply,
+    mamba1_decode,
+    mamba1_init_cache,
+    mamba2_apply,
+    mamba2_decode,
+    mamba2_init_cache,
+)
 
 
 class DecoderBlock(nn.Module):
@@ -122,3 +135,57 @@ def decoder_block_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, 
         "v": torch.zeros((batch, hk, t, dh), dtype=dtype, device=device),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# SSM blocks
+# ---------------------------------------------------------------------------
+
+
+_SSM_VARIANTS = {
+    "mamba1": (Mamba1, mamba1_apply, mamba1_decode, mamba1_init_cache),
+    "mamba2": (Mamba2, mamba2_apply, mamba2_decode, mamba2_init_cache),
+}
+
+
+def _variant(cfg: ModelConfig):
+    if cfg.ssm.variant not in _SSM_VARIANTS:
+        raise ValueError(f"ssm variant {cfg.ssm.variant!r} not in {sorted(_SSM_VARIANTS)}")
+    return _SSM_VARIANTS[cfg.ssm.variant]
+
+
+class SSMBlock(nn.Module):
+    """``ln`` and ``ssm`` (:class:`~repro_torch.models.ssm.Mamba1` or
+    :class:`~repro_torch.models.ssm.Mamba2`, as ``cfg.ssm.variant`` says);
+    the dense weights uninitialized until :meth:`reset_parameters` or
+    ``load_state_dict``."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device):
+        super().__init__()
+        self.ln = make_norm(cfg.norm, cfg.d_model, dtype=dtype, device=device)
+        self.ssm = _variant(cfg)[0](cfg, dtype=dtype, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.ssm.reset_parameters(generator)
+
+
+def ssm_block_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
+                   device: torch.device | str) -> SSMBlock:
+    blk = SSMBlock(cfg, dtype=dtype, device=device)
+    blk.reset_parameters(generator)
+    return blk
+
+
+def ssm_block_apply(params: SSMBlock, cfg: ModelConfig, x):
+    return x + _variant(cfg)[1](params.ssm, cfg, params.ln(x))
+
+
+def ssm_block_decode(params: SSMBlock, cfg: ModelConfig, x, cache: dict):
+    out, cache = _variant(cfg)[2](params.ssm, cfg, params.ln(x), cache)
+    return x + out, cache
+
+
+def ssm_block_init_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    """``conv`` (the last K−1 conv inputs, in ``dtype``) and ``h`` (the
+    float32 state)."""
+    return _variant(cfg)[3](cfg, batch, dtype, device)

@@ -4,8 +4,9 @@ reference's ``serving/engine.py``.
 
 A request's prompt is prefilled by teacher-forcing it through
 :func:`decode_step`, one token per step over every slot, exactly as the
-reference does; decode attention is plain torch, so **no kernel runs on
-this path**.  The CUDA flash kernel serves ``models.forward`` (prefill of
+reference does; decode attention and an SSM layer's step are plain torch,
+so **no kernel runs on this path**, for any arch (dense, MoE, SSM or
+hybrid: the engine only calls ``decode_step``).  The CUDA flash kernel serves ``models.forward`` (prefill of
 a whole sequence), which the engine, like the reference's, never calls.
 """
 from __future__ import annotations

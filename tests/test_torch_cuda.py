@@ -953,6 +953,60 @@ def test_moe_decode_at_b1_on_card_matches_dense_prefill(cuda, arch):
     torch.testing.assert_close(torch.stack(outs, dim=1), full, rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_ssm_arch_on_card_matches_cpu(cuda, arch):
+    """Each SSM arch reduced, float32, s 96 (zamba2-2.7b's Mamba-2 scan: a
+    full SSD chunk and a padded one): the card's forward launches the
+    flash kernel once per application of zamba2's shared block (2) and
+    never in falcon-mamba-7b, and gives the CPU's logits on the same
+    weights within 1e-4 × (|ref| + mean|ref| of the token's row); then 8
+    decode steps at b 2 on each device, the logits held the same way and
+    the last step's float32 states ``h`` within 1e-4 × max|ref|."""
+    from repro_torch.models.model import DecoderLM
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    host = DecoderLM(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in params.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab, (2, 96), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(8))
+    reset_flash_counts()
+    out = forward(cfg, params, toks)
+    torch.cuda.synchronize()
+    assert flash_counts()["flash_attention"] == (2 if arch == "zamba2-2.7b" else 0)
+    assert _logits_worst(out.cpu(), forward(cfg, host, toks.cpu())) <= 1e-4
+    cache, hcache = init_cache(cfg, 2, 8, device=cuda), init_cache(cfg, 2, 8, device="cpu")
+    for t in range(8):
+        logits, cache = decode_step(cfg, params, toks[:, t:t + 1], cache)
+        ref, hcache = decode_step(cfg, host, toks[:, t:t + 1].cpu(), hcache)
+        assert _logits_worst(logits.cpu(), ref) <= 1e-4
+    key = "layers" if arch == "falcon-mamba-7b" else "ssm"
+    for lc, hc in zip(cache[key], hcache[key], strict=True):
+        h, ref = lc["h"].cpu(), hc["h"]
+        assert float((h - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_zamba2_shared_block_kernel_route_on_card(cuda):
+    """zamba2-2.7b's shared block at its published width (d_model 2560, 32
+    heads of 80, full causal, SwiGLU d_ff 10240), float32, b 1, s 2048:
+    the kernel route launches flash_attention once and its output is the
+    plain route's within 1e-4 × (|ref| + mean|ref| of the token's row)."""
+    from repro_torch.models.blocks import decoder_block_apply, decoder_block_init
+
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    blk = decoder_block_init(cfg, torch.float32, generator=gen, device=cuda)
+    x = torch.randn((1, 2048, cfg.d_model), generator=gen, device=cuda)
+    pos = torch.arange(2048, device=cuda, dtype=torch.int32)[None]
+    reset_flash_counts()
+    out = decoder_block_apply(blk, cfg, x, pos)
+    assert flash_counts()["flash_attention"] == 1
+    ref = decoder_block_apply(blk, cfg, x, pos, use_kernel=False)
+    torch.cuda.synchronize()
+    assert flash_counts()["flash_attention"] == 1
+    assert _logits_worst(out, ref) <= 1e-4
+
+
 def _contracting_graph():
     """A webStanford surrogate whose plan contracts chains: its core is
     weighted and biased, with the full graph's out-degrees."""

@@ -131,9 +131,9 @@ Phases, one or more lines each; any failure exits non-zero:
                queries: rounds, pushes, the L1 certificate, wall; every
                estimate at or below the oracle, every top-10 the oracle's
                up to the certificate;
-    build   — (run after phase 21, with store and faults; its two
+    build   — (run after phase 23, with store and faults; its two
                children start before phase 15 and stream to disk while
-               phases 15–21 use the card) the out-of-core build
+               phases 15–23 use the card) the out-of-core build
                pipeline through the launcher's build:
                at 1/16 of socLiveJournal1, an unordered build's raw store
                has the array files and CRC-32s of make_dataset's cache
@@ -181,9 +181,10 @@ Phases, one or more lines each; any failure exits non-zero:
                qwen2-vl-2b (b 2, hq 12, hkv 2, s 4096, dh 128; causal and
                window 512), stablelm-3b (b 2, hq 32, hkv 32, s 4096, dh 80),
                starcoder2-3b (b 2, hq 24, hkv 2, s 8192, dh 128, window
-               4096, which masks a quarter of the causal pairs) and
+               4096, which masks a quarter of the causal pairs),
                mixtral-8x22b (b 1, hq 48, hkv 8, s 8192, dh 128, window
-               4096), checked
+               4096) and whisper-medium's encoder (b 2, hq = hkv = 16,
+               s 1500, dh 64, no causal mask), checked
                and timed beside the plain version, SDPA (with a band mask
                for a window) and the bound (and, in bf16, the floor of the
                kernel's own tensor-core work: P·V as P_TERMS bf16
@@ -235,7 +236,29 @@ Phases, one or more lines each; any failure exits non-zero:
                the device time from one layer and its scan traced alone;
                the f32 checks and decode on the first 16 and 18 layers
                (for time: a float32 copy of all fits); then serve
-               --preset full for both.
+               --preset full for both;
+22. whisper — whisper-medium at its published width and depth (24
+               encoder and 24 decoder layers, 0.81 B parameters, bf16,
+               random from a seeded generator), b 2, 1,500 random frames,
+               448 tokens: the prefill launches the kernel once per
+               encoder layer (not causal) and once per decoder layer
+               (48), frames+tokens/s over three runs beside the plain
+               route, the trace and the kernel's share of it; a float32
+               copy of every layer, kernel route against plain route
+               entry-wise; the bf16 routes against the float32 forward;
+               128 teacher-forced float32 decode steps through the cross
+               cache against the prefill; serve --arch whisper-medium
+               exits as the reference's;
+23. train   — repro_torch.launch.train: stablelm-3b --preset full (2.8 B
+               parameters, bf16) for 4 sync steps at seq 256, global
+               batch 8: finite losses and norms, every parameter moved, no
+               flash launch (training takes the plain route), seconds a
+               step, peak memory and AdamW's share of a step;
+               whisper-medium --preset 100m for 2 steps; local SGD over 2
+               replicas (equal after the int8 sync); a --preset 100m run
+               checkpointed every 2 steps, restored from LATEST and saved
+               again bit for bit, and resumed; one reduced float32 step,
+               card against CPU.
 
 Each phase ends with its host wall on a line ``phase <name>: wall_s=``.
 It then prints one JSON line naming every kernel (its ``timed_by`` says
@@ -355,11 +378,22 @@ PLAIN_SCORE_BYTES = 4 * 2**30
 PLAIN_CHUNK = 1024
 # the prefill shapes the main paths give flash_attention, checked and timed
 # in the flash phase: (model, (b, hq, hkv, s, dh), windows)
-FLASH_TIMED = (
-    ("qwen2-vl-2b", (LM_BATCH, 12, 2, LM_SEQ, 128), (None, 512)),
-    ("stablelm-3b", (2, 32, 32, 4096, 80), (None,)),
-    ("starcoder2-3b", (2, 24, 2, 8192, 128), (4096,)),
-    ("mixtral-8x22b", (1, 48, 8, 8192, 128), (4096,)),
+WHISPER_BATCH = 2
+WHISPER_TOKENS = 448  # the decoder's context
+# the train phase: stablelm-3b at full width, as the reference's launcher
+# trains (seq 256, global batch 8, loss chunks of 128)
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_ARGV = ["--seq-len", "256", "--global-batch", "8", "--log-every", "1"]
+TRAIN_STEPS = 4
+TRAIN_LOSS_RTOL = 1e-5  # one reduced f32 step, card against CPU
+TRAIN_NORM_RTOL = 1e-4
+FLASH_TIMED = (  # (model, (b, hq, hkv, s, dh), windows, causal)
+    ("qwen2-vl-2b", (LM_BATCH, 12, 2, LM_SEQ, 128), (None, 512), True),
+    ("stablelm-3b", (2, 32, 32, 4096, 80), (None,), True),
+    ("starcoder2-3b", (2, 24, 2, 8192, 128), (4096,), True),
+    ("mixtral-8x22b", (1, 48, 8, 8192, 128), (4096,), True),
+    # whisper-medium's encoder: 1,500 frames, no causal mask
+    ("whisper-medium", (WHISPER_BATCH, 16, 16, 1500, 64), (None,), False),
 )
 # the dense decoders after qwen2-vl-2b: (arch, prefill b, s, layers of the
 # float32 checks, None for all)
@@ -2823,8 +2857,9 @@ def check_differ_share(what: str, differ: int, total: int) -> float:
 def flash_kernel_phase(dev):
     """The kernel against its plain version over the reference's test
     matrix, ragged lengths and head dim 80, each entry within its bound;
-    then at the prefill shapes of FLASH_TIMED, checked and timed beside
-    the plain version, SDPA and the bound."""
+    then at the prefill shapes of FLASH_TIMED (whisper-medium's encoder
+    without the causal mask), checked and timed beside the plain version,
+    SDPA and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -2863,11 +2898,10 @@ def flash_kernel_phase(dev):
           + f", limit {BF16_DIFFER_SHARE:g}", flush=True)
 
     stats = {}
-    for name, (b, hq, hkv, s, dh), windows in FLASH_TIMED:
+    for name, (b, hq, hkv, s, dh), windows, causal in FLASH_TIMED:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = _qkv(dev, dtype, b, hq, hkv, s, s, dh, seed=7)
             for window in windows:
-                causal = True
                 reset_launch_counts()
                 out = flash_attention(q, k, v, causal=causal, window=window)
                 torch.cuda.synchronize()
@@ -2913,8 +2947,8 @@ def flash_kernel_phase(dev):
 
                 def sdpa():
                     return F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=mask, is_causal=mask is None, scale=dh**-0.5,
-                        enable_gqa=True)
+                        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                        scale=dh**-0.5, enable_gqa=True)
 
                 lib_err = float((sdpa().float() - out.float()).abs().max())
                 st["library_ms"] = time_ms(sdpa, 20)
@@ -2930,7 +2964,7 @@ def flash_kernel_phase(dev):
                 floor_ms = flops * (1 + terms * width / dh) / 2 / BF16_TC_FLOPS * 1e3
                 floor = f", its own tensor-core floor {floor_ms:.4f} ms" if bf16 else ""
                 live = attention_pairs(s, s, causal, window)
-                pairs = f"{live} live (q, k) pairs a head"
+                pairs = f"{live} live (q, k) pairs a head{'' if causal else ' (no causal mask)'}"
                 if window is not None:
                     every = attention_pairs(s, s, causal, None)
                     check(live < every, f"window {window} at s {s} masks no causal pair")
@@ -3595,6 +3629,280 @@ def ssm_phase(dev) -> dict:
     return fa_paths
 
 
+def whisper_phase(dev) -> int:
+    """whisper-medium at its published width and depth (24 encoder and 24
+    decoder layers, d_model 1024, 0.81 B parameters with the untied head),
+    random bf16 from a seeded generator, b WHISPER_BATCH, 1,500 random
+    frames, WHISPER_TOKENS decoder tokens: the prefill on the kernel route
+    launches flash_attention once per encoder layer (not causal) and once
+    per decoder layer (the main path), timed beside the plain route over
+    three runs each and traced; a float32 copy, kernel route against
+    plain route entry-wise; the bf16 routes against the float32 forward;
+    DECODE_STEPS teacher-forced float32 decode steps through
+    init_cross_cache against the prefill; serve --arch whisper-medium
+    exits as the reference's does.  Returns the prefill's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models.common import pad_vocab
+    from repro_torch.models.model import (
+        DecoderLM, decode_step, encode, forward, init_cache, init_cross_cache, init_params,
+    )
+
+    arch = "whisper-medium"
+    cfg = get_config(arch)
+    b, s, n_frames = WHISPER_BATCH, WHISPER_TOKENS, cfg.encoder.n_frames
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"lm: {arch} {cfg.encoder.n_layers} encoder + {cfg.n_layers} decoder layers, "
+          f"d_model {cfg.d_model}, heads {cfg.n_heads} of {cfg.resolved_head_dim}, "
+          f"{cfg.norm}, {cfg.mlp}, sinusoidal positions, {n_params} parameters in "
+          f"{cfg.dtype}, random init in {time.perf_counter() - t0:.1f}s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    frames = torch.randn((b, n_frames, cfg.d_model), generator=gen, device=dev)
+    forward(cfg, params, toks[:, :64], frames=frames)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launch_counts()
+    walls = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        bf16_kernel = forward(cfg, params, toks, frames=frames)  # the main path
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = fa.launch_counts()["flash_attention"]
+    want = cfg.encoder.n_layers + cfg.n_layers
+    check(launches == want, f"{arch} prefill launched flash_attention {launches} times, "
+          f"expected {want} (one per encoder and decoder layer)")
+    check(tuple(bf16_kernel.shape) == (b, s, pad_vocab(cfg.vocab))
+          and bool(torch.isfinite(bf16_kernel).all()), f"{arch} prefill logits malformed")
+    plain_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        bf16_plain = forward(cfg, params, toks, frames=frames, use_flash_kernel=False)
+        torch.cuda.synchronize()
+        plain_walls.append(time.perf_counter() - t0)
+    n_in = b * (n_frames + s)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"lm: {arch} bf16 prefill b={b}, {n_frames} frames, {s} tokens: kernel route "
+          f"{n_in / min(walls):.0f} frames+tokens/s, {b * s / min(walls):.0f} tok/s (runs "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s), plain route "
+          f"{n_in / min(plain_walls):.0f} frames+tokens/s (runs "
+          f"{', '.join(f'{w:.4f}' for w in plain_walls)} s); flash_attention launches per "
+          f"prefill {launches} ({cfg.encoder.n_layers} not causal, {cfg.n_layers} causal); "
+          f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+    _, wall_ms, busy_ms, rows = traced(lambda: forward(cfg, params, toks, frames=frames))
+    extra = ""
+    if rows is not None:
+        flash_ms = sum(e.self_device_time_total for e in rows if "flash" in e.key) / 1e3
+        extra = f"flash_share={flash_ms / busy_ms:.3f} ({flash_ms:.3f} ms) "
+    print_trace(f"lm prefill {arch} (bf16, kernel route)", wall_ms, busy_ms, rows,
+                extra=extra, top=8)
+
+    # float32 on the same weights, every layer (3.2 GB), TF32 off
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = DecoderLM(cfg32, device=dev)
+    params32.load_state_dict(params.state_dict())
+    del params
+    f32_plain = forward(cfg32, params32, toks, frames=frames, use_flash_kernel=False)
+    f32_kernel = forward(cfg32, params32, toks, frames=frames)
+    torch.cuda.synchronize()
+    diff = float((f32_kernel - f32_plain).abs().max())
+    worst = logits_worst(f32_kernel, f32_plain, LOGIT_RTOL)
+    del f32_kernel
+    check(worst <= 1.0, f"{arch} f32 prefill: kernel route off the plain route, worst "
+          f"entry {worst:.3f}x its bound")
+    print(f"lm: {arch} f32 prefill b={b}: kernel vs plain route max abs diff {diff:.3e}, "
+          f"worst entry {worst:.4f}x the bound {LOGIT_RTOL:g}*(|ref| + row mean|ref|); "
+          f"max|logits| {float(f32_plain.abs().max()):.3f}", flush=True)
+    ref_arg = f32_plain.argmax(dim=-1)
+    err = {}
+    for route, logits in (("kernel", bf16_kernel), ("plain", bf16_plain)):
+        agree = float((logits.argmax(dim=-1) == ref_arg).float().mean())
+        err[route] = float(logits.sub_(f32_plain).abs_().mean())
+        check(bool(np.isfinite(err[route])), f"{arch} bf16 {route} route: error not finite")
+        print(f"lm: {arch} bf16 {route} route vs the f32 forward: argmax agreement "
+              f"{agree:.4f}, mean |diff| {err[route]:.4e}", flush=True)
+    del bf16_kernel, bf16_plain, f32_plain, ref_arg
+    check(err["kernel"] <= BF16_ERR_RATIO * err["plain"],
+          f"{arch} bf16 prefill: kernel route's mean error {err['kernel']:.4e} > "
+          f"{BF16_ERR_RATIO}x the plain route's {err['plain']:.4e}")
+
+    # decode: the cross K/V once, then DECODE_STEPS teacher-forced f32 steps
+    dtoks = toks[:, :DECODE_STEPS].contiguous()
+    full = forward(cfg32, params32, dtoks, frames=frames)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    cache = init_cache(cfg32, b, DECODE_STEPS, device=dev)
+    cache["cross"] = init_cross_cache(cfg32, params32, encode(cfg32, params32, frames))
+    torch.cuda.synchronize()
+    cross_ms = (time.perf_counter() - t0) * 1e3
+    launches_encode = fa.launch_counts()["flash_attention"]
+    fa.reset_launch_counts()
+    outs = []
+    t0 = time.perf_counter()
+    for t in range(DECODE_STEPS):
+        logits, cache = decode_step(cfg32, params32, dtoks[:, t:t + 1], cache)
+        outs.append(logits[:, 0])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
+    check(fa.launch_counts()["flash_attention"] == 0, "decode launched the flash kernel")
+    dec = torch.stack(outs, dim=1)
+    derr = (dec - full).abs()
+    dworst = float((derr / (DECODE_TOL + DECODE_TOL * full.abs())).max())
+    check(dworst <= 1.0, f"{arch} decode off prefill: worst entry {dworst:.3f}x the bound")
+    print(f"lm: {arch} f32 decode b={b}, {DECODE_STEPS} teacher-forced steps through the "
+          f"cross cache (encoder and cross K/V of {cfg.n_layers} layers once: "
+          f"{cross_ms:.1f} ms, {launches_encode} flash launches): {step_ms:.2f} ms/step; "
+          f"logits vs prefill max abs err {float(derr.max()):.3e}, worst entry "
+          f"{dworst:.4f}x the bound (atol = rtol = {DECODE_TOL:g}); no kernel launched",
+          flush=True)
+    _, wall_ms, busy_ms, rows = traced(lambda: decode_step(cfg32, params32, dtoks[:, :1], cache))
+    print_trace(f"lm decode step {arch} (f32)", wall_ms, busy_ms, rows,
+                extra=f"device ops={device_launches(rows)} ")
+    del params32, cache, full, dec
+    try:
+        serve.run(["--arch", arch, "--preset", "full"])
+    except SystemExit as exc:
+        print(f"lm: serve --arch {arch} --preset full exits as the reference's: {exc}",
+              flush=True)
+    else:
+        check(False, f"serve --arch {arch} served: the engine passes no frames")
+    return launches
+
+
+def train_phase(dev) -> None:
+    """The training launcher (repro_torch.launch.train.run) on the card:
+    stablelm-3b at --preset full (32 layers, d_model 2560, 2.8 B
+    parameters in bf16, float32 AdamW moments) for TRAIN_STEPS sync steps
+    at seq 256, global batch 8: every loss and gradient norm finite, every
+    parameter moved, no flash launch (training takes the plain route),
+    seconds a step and peak memory, and AdamW's share of a step from
+    adamw_update timed alone on the same weights; whisper-medium at
+    --preset 100m for 2 steps; local SGD at --preset tiny over 2 replicas
+    of 2 inner steps, the replicas equal after the sync; --preset 100m
+    with --ckpt-dir (a temporary directory under build/, deleted after):
+    4 steps checkpointed every 2, then a run of 0 steps restores LATEST
+    and saves it again bit for bit, then a run resumes from it; last, one
+    train step at stablelm-3b's reduced float32 config on the card and on
+    the CPU from the same weights."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import restore_arrays
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.training import AdamWConfig, adamw_update, init_train_state, make_train_step
+
+    def launched(argv):
+        fa.reset_launch_counts()
+        rep = train.run(argv)
+        check(fa.launch_counts()["flash_attention"] == 0,
+              f"train {' '.join(argv)} launched the flash kernel")
+        check(bool(np.all(np.isfinite(rep["losses"] + rep["grad_norms"]))),
+              f"train {' '.join(argv)}: a loss or norm is not finite")
+        return rep
+
+    full = ["--arch", TRAIN_ARCH, "--preset", "full", "--steps", str(TRAIN_STEPS)] + TRAIN_ARGV
+    torch.cuda.empty_cache()
+    rep = launched(full)
+    n_tensors = len(list(DecoderLM(get_config(TRAIN_ARCH), device="meta").parameters()))
+    check(rep["changed"] == n_tensors,
+          f"train {TRAIN_ARCH}: {rep['changed']} of {n_tensors} parameters moved")
+    torch.cuda.empty_cache()
+    # AdamW alone on the same weights, gradients drawn once
+    cfg = get_config(TRAIN_ARCH)
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = dict(state.params.named_parameters())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    grads = {k: torch.randn(p.shape, generator=gen, device=dev).to(p.dtype) * 1e-3
+             for k, p in params.items()}
+    opt = [state.opt]
+
+    def update():
+        opt[0], _ = adamw_update(AdamWConfig(), params, grads, opt[0])
+
+    opt_ms = time_ms(update, 3, warmup=1)
+    del state, params, grads, opt
+    torch.cuda.empty_cache()
+    step_s = statistics.median(rep["step_s"][1:])
+    print(f"train: {TRAIN_ARCH} --preset full ({rep['params']} parameters, bf16 weights and "
+          f"gradients, float32 m and v), seq 256, global batch 8, loss chunks of 128: "
+          f"{TRAIN_STEPS} sync steps, losses {', '.join(f'{x:.4f}' for x in rep['losses'])}, "
+          f"gradient norms {', '.join(f'{x:.3f}' for x in rep['grad_norms'])}; seconds a "
+          f"step {', '.join(f'{x:.3f}' for x in rep['step_s'])} (median after the first "
+          f"{step_s:.3f}); peak memory {rep['peak_mem'] / 1e9:.1f} GB; adamw_update alone "
+          f"{opt_ms:.1f} ms ({opt_ms / 1e3 / step_s:.3f} of a step); all {n_tensors} "
+          f"parameters moved; no flash launch", flush=True)
+
+    rep = launched(["--arch", "whisper-medium", "--preset", "100m", "--steps", "2"] + TRAIN_ARGV)
+    print(f"train: whisper-medium --preset 100m ({rep['params']} parameters, 6 encoder layers "
+          f"of 256 frames of ones): losses {', '.join(f'{x:.4f}' for x in rep['losses'])}, "
+          f"{', '.join(f'{x:.3f}' for x in rep['step_s'])} s a step, peak memory "
+          f"{rep['peak_mem'] / 1e9:.1f} GB", flush=True)
+
+    rep = launched(["--arch", TRAIN_ARCH, "--preset", "tiny", "--dp-mode", "nosync",
+                    "--replicas", "2", "--inner-steps", "2", "--steps", "1"] + TRAIN_ARGV)
+    check(rep["changed"] is True, "local SGD: the replicas differ after the outer sync")
+    print(f"train: {TRAIN_ARCH} --preset tiny --dp-mode nosync, 2 replicas of 2 inner steps: "
+          f"outer loss {rep['losses'][0]:.4f} in {rep['step_s'][0]:.3f} s; the replicas "
+          f"equal after the int8 sync", flush=True)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=os.path.join(ROOT, "build"))
+    try:
+        base = ["--arch", TRAIN_ARCH, "--preset", "100m", "--ckpt-dir", ckpt] + TRAIN_ARGV
+        first = launched(base + ["--steps", "4", "--ckpt-every", "2"])
+        check(first["saved"] == [2, 4], f"checkpoints at {first['saved']}, expected [2, 4]")
+        saved, step = restore_arrays(ckpt)  # read whole: the next run rewrites the file
+        again = launched(base + ["--steps", "0"])  # restores LATEST, saves it again
+        resaved, _ = restore_arrays(ckpt)
+        check(again["start_step"] == step and set(saved) == set(resaved)
+              and all(saved[k].dtype == resaved[k].dtype
+                      and torch.equal(saved[k].reshape(-1).view(torch.uint8),
+                                      resaved[k].reshape(-1).view(torch.uint8))
+                      for k in saved), "checkpoint: the restored state is not the saved one")
+        resumed = launched(base + ["--steps", "1"])
+        check(resumed["start_step"] == step, "checkpoint: the run did not resume")
+        print(f"train: {TRAIN_ARCH} --preset 100m checkpointed at steps {first['saved']} "
+              f"({len(saved)} arrays, "
+              f"{sum(t.numel() * t.element_size() for t in saved.values()) / 1e9:.2f} GB); a "
+              f"second run restored step {again['start_step']} from LATEST and saved it bit "
+              f"for bit again; a third resumed at step {resumed['start_step']}, loss "
+              f"{resumed['losses'][0]:.4f}", flush=True)
+    finally:
+        shutil.rmtree(ckpt)
+
+    small = dataclasses.replace(get_config(TRAIN_ARCH).reduced(), dtype="float32")
+    card = init_train_state(small, torch.Generator(device=dev).manual_seed(0), device=dev)
+    host_model = DecoderLM(small, device="cpu")
+    host_model.load_state_dict({k: v.detach().cpu() for k, v in card.params.state_dict().items()})
+    host = init_train_state(small, params=host_model)
+    toks = torch.randint(0, small.vocab, (2, 65), generator=torch.Generator().manual_seed(5))
+    step = make_train_step(small, AdamWConfig(lr=1e-2, warmup_steps=2), ce_chunk=16)
+    _, got = step(card, {"tokens": toks.to(dev)})
+    _, want = step(host, {"tokens": toks})
+    loss_rel = abs(float(got["loss"]) - float(want["loss"])) / abs(float(want["loss"]))
+    norm_rel = (abs(float(got["grad_norm"]) - float(want["grad_norm"]))
+                / abs(float(want["grad_norm"])))
+    check(loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_NORM_RTOL,
+          f"train step card vs CPU: loss {loss_rel:.3e}, norm {norm_rel:.3e} relative")
+    print(f"train: one step of {TRAIN_ARCH} reduced, float32, card vs CPU: loss "
+          f"{float(got['loss']):.6f} ({loss_rel:.3e} relative, bound {TRAIN_LOSS_RTOL:g}), "
+          f"gradient norm {float(got['grad_norm']):.6f} ({norm_rel:.3e}, bound "
+          f"{TRAIN_NORM_RTOL:g})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3705,6 +4013,12 @@ def main() -> int:
     fa_paths.update(moe_phase(dev))
     fa_paths.update(ssm_phase(dev))
     torch.cuda.empty_cache()
+    with phase_wall("whisper"):
+        fa_paths["whisper-medium prefill"] = whisper_phase(dev)
+    torch.cuda.empty_cache()
+    with phase_wall("train"):
+        train_phase(dev)
+    torch.cuda.empty_cache()
     with phase_wall("build"):
         build_stats, bfs_stats, paths = build_phase(g, dev, children)
         for kernel, by_path in paths.items():
@@ -3757,10 +4071,13 @@ def main() -> int:
         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
         "timed_by": {"ms": "events", "plain_ms": "events", "library_ms": "events"},
         # the prefill shapes of stablelm-3b (dh 80), starcoder2-3b and
-        # mixtral-8x22b (window 4096), bf16
+        # mixtral-8x22b (window 4096), and whisper-medium's encoder, bf16
         "stablelm-3b shape": shape_entry(flash[("stablelm-3b", torch.bfloat16, None)]),
         "starcoder2-3b shape": shape_entry(flash[("starcoder2-3b", torch.bfloat16, 4096)]),
         "mixtral-8x22b shape": shape_entry(flash[("mixtral-8x22b", torch.bfloat16, 4096)]),
+        # whisper-medium's encoder, not causal
+        "whisper-medium encoder shape": shape_entry(
+            flash[("whisper-medium", torch.bfloat16, None)]),
     })
     check(all(k["launches"] > 0 and all(n > 0 for n in k.get("launches_by_path", {}).values())
               for k in kernels), "a kernel never launched on a main path")

@@ -1,12 +1,11 @@
 """Architecture registry of the port.
 
-A copy of the reference's ``repro.configs`` cut to the architectures whose
-model code is ported: the five dense decoders (starcoder2-3b,
-phi3-medium-14b, gemma2-2b, stablelm-3b, qwen2-vl-2b), the hybrid
-zamba2-2.7b (Mamba-2 with a shared attention block), the pure-SSM
+A copy of the reference's ``repro.configs`` architecture registry: the
+five dense decoders (starcoder2-3b, phi3-medium-14b, gemma2-2b,
+stablelm-3b, qwen2-vl-2b), the hybrid zamba2-2.7b (Mamba-2 with a shared
+attention block), the encoder-decoder whisper-medium, the pure-SSM
 falcon-mamba-7b (Mamba-1) and the two MoE decoders (mixtral-8x22b,
-deepseek-v2-236b with MLA), in the reference's order.  whisper-medium
-comes with the slice that ports its encoder-decoder.
+deepseek-v2-236b with MLA), in the reference's order.
 """
 from __future__ import annotations
 
@@ -20,6 +19,7 @@ _ARCH_MODULES = {
     "gemma2-2b": "gemma2_2b",
     "stablelm-3b": "stablelm_3b",
     "zamba2-2.7b": "zamba2_2p7b",
+    "whisper-medium": "whisper_medium",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "qwen2-vl-2b": "qwen2_vl_2b",
     "mixtral-8x22b": "mixtral_8x22b",

@@ -79,13 +79,10 @@ class ModelConfig:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
     def reduced(self) -> "ModelConfig":
-        """CI-sized config of the same family for smoke tests: the
-        reference's ``reduced`` for the fields of a dense, MoE, SSM or
-        hybrid decoder (the sliding window cut to at most 64; the MoE, MLA
-        and SSM sub-configs shrunk as the reference shrinks them; a hybrid
-        cut to 4 layers, a shared block every 2).  The reference also
-        shrinks the encoder sub-config; that comes with the whisper-medium
-        slice."""
+        """CI-sized config of the same family for smoke tests, the
+        reference's ``reduced``: the sliding window cut to at most 64; the
+        MoE, MLA, SSM and encoder sub-configs shrunk as the reference
+        shrinks them; a hybrid cut to 4 layers, a shared block every 2."""
         changes: dict = dict(
             n_layers=min(self.n_layers, 2 if not self.hybrid_attn_every else self.hybrid_attn_every + 1),
             d_model=128,
@@ -111,6 +108,8 @@ class ModelConfig:
                 qk_rope_head_dim=16, v_head_dim=32,
             )
             changes["head_dim"] = 0
+        if self.encoder:
+            changes["encoder"] = EncoderConfig(n_layers=2, n_frames=64, d_frontend=128)
         if self.hybrid_attn_every:
             changes["hybrid_attn_every"] = 2
             changes["n_layers"] = 4

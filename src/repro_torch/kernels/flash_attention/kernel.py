@@ -79,8 +79,17 @@ def flash_attention_kernel(
     tensor cores (``wgmma`` on TMA-fed tiles, P summed as three exact
     bf16 terms), float32 on the CUDA cores; a failed build or launch
     raises.  Bound: operations, ``4·dh`` flops per live (q, k) pair; see
-    the design note in ``csrc/flash_attention.cu``."""
+    the design note in ``csrc/flash_attention.cu``.
+
+    Forward only, as the TPU kernel: with grad mode on and any of q, k, v
+    requiring grad it raises ``RuntimeError`` on either device, so that a
+    training call routed here fails instead of dropping the gradients of
+    q, k and v.  The plain version is differentiable: training takes the
+    plain route (``use_flash_kernel=False``)."""
     _check(q, k, v, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention has no backward: call it under torch.no_grad() "
+                           "or take the plain route (use_flash_kernel=False) to train")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, scale=scale, causal=causal, window=window)
     dh = q.shape[-1]

@@ -7,7 +7,9 @@ on the GPU by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --preset full
 
 ``--arch`` is any of the port's archs: dense, MoE, SSM (falcon-mamba-7b)
-or hybrid (zamba2-2.7b); qwen2-vl-2b by default.  ``--preset tiny`` (the
+or hybrid (zamba2-2.7b); qwen2-vl-2b by default.  whisper-medium exits
+with ``SystemExit``, as in the reference: the engine serves no
+encoder-decoder.  ``--preset tiny`` (the
 default) serves the arch's reduced float32 config; ``--preset full``
 serves it at its published width and depth in its own dtype (qwen2-vl-2b:
 28 layers, d_model 1536, bf16), from random weights drawn from a seeded
@@ -70,6 +72,10 @@ def run(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.preset == "tiny":
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+    if cfg.encoder:
+        raise SystemExit(f"{cfg.name} is an encoder-decoder: the ServingEngine passes "
+                         f"neither frames nor a cross cache, as the reference's does not; "
+                         f"decode it with models.model.decode_step and init_cross_cache")
 
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     eng = ServingEngine(cfg, params, batch_slots=args.slots, max_len=args.max_len, eos=-1)

@@ -1,18 +1,18 @@
-"""Attention of the decoders: grouped-query attention (GQA) with RoPE or
-qwen2-vl's M-RoPE, causal, with an optional sliding window and gemma2's
-score softcap, and deepseek-v2's multi-head latent attention (MLA), each
-over the whole sequence (prefill) or one step against its cache (decode).
+"""Attention of the LMs: grouped-query attention (GQA) with RoPE, qwen2-vl's
+M-RoPE or no rotation (whisper), causal or not, with an optional sliding
+window and gemma2's score softcap; deepseek-v2's multi-head latent
+attention (MLA); whisper's cross attention over the encoder's output.
+Each runs over the whole sequence (prefill) or one step against its cache
+(decode).
 
 ``gqa_apply`` routes to the flash-attention op when ``use_kernel`` is set
 and the config has no score softcap (as the reference does), which on a
 CUDA tensor is the hand-written CUDA kernel (``kernels/flash_attention``).
 Unlike the reference, ``use_kernel`` defaults to True: on the card the
 kernel route is the path, and the plain route is an explicit request.
-``gqa_decode``, ``mla_apply`` and ``mla_decode`` are plain torch, as the
-reference's jnp versions are: no kernel runs on them.
-
-The reference's cross attention comes with the whisper slice
-(:func:`repro_torch.models.model.check_ported`).
+``gqa_decode``, ``mla_apply``, ``mla_decode`` and the cross attention
+are plain torch, as the reference's jnp versions are: no kernel runs on
+them.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.common import RMSNorm, dense_init_, param, softcap
 from repro_torch.models.rope import apply_mrope, apply_rope
 
@@ -59,9 +60,12 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * dh)).view(b, s, h, dh).transpose(1, 2)
 
 
-def _rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """M-RoPE for ``(B, 3, S)`` positions of an M-RoPE config, else plain
-    RoPE on ``(B, S)`` positions, as the reference's ``_rope``."""
+def _rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor | None) -> torch.Tensor:
+    """``x`` as it is where RoPE is off or ``positions`` is None; M-RoPE for
+    ``(B, 3, S)`` positions of an M-RoPE config; else plain RoPE on
+    ``(B, S)`` positions, as the reference's ``_rope``."""
+    if positions is None or not cfg.rope_enabled:
+        return x
     if cfg.mrope and positions.dim() == 3:
         return apply_mrope(x, positions, cfg.rope_theta)
     return apply_rope(x, positions, cfg.rope_theta)
@@ -71,7 +75,7 @@ def gqa_apply(
     params: GQAttention,
     cfg: ModelConfig,
     x: torch.Tensor,  # (B, S, D)
-    positions: torch.Tensor,  # (B, S), or (B, 3, S) M-RoPE positions
+    positions: torch.Tensor | None,  # (B, S), (B, 3, S) M-RoPE positions, or None
     *,
     causal: bool = True,
     window: int | None = None,
@@ -315,3 +319,53 @@ def mla_decode(params: MLAttention, cfg: ModelConfig, x: torch.Tensor, cache: di
     o = torch.einsum("bhqr,rhk->bhqk", rounded(o_c), params.wuv.float()).to(x.dtype)
     out = o.transpose(1, 2).reshape(b, 1, h * m.v_head_dim) @ params.wo
     return out, {"ckv": ckv, "kr": kr, "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+class CrossAttention(nn.Module):
+    """Cross-attention weights in the reference's layout, every projection
+    with ``n_heads`` heads: ``wq``, ``wk``, ``wv (d, h, dh)`` and ``wo (h·dh,
+    d)``; uninitialized until :meth:`reset_parameters` or
+    ``load_state_dict``."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        d, h, dh = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+        self.wq = param((d, h, dh), dtype, device)
+        self.wk = param((d, h, dh), dtype, device)
+        self.wv = param((d, h, dh), dtype, device)
+        self.wo = param((h * dh, d), dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv):
+            dense_init_(w, generator, self.cfg.d_model)
+        dense_init_(self.wo, generator, self.wo.shape[0])
+
+
+def cross_kv(params: CrossAttention, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A layer's cross-attention K and V ``(B, h, T, dh)`` from the encoder
+    output ``(B, T, d)``: computed once a request, not once a decode step."""
+    return _heads(enc_out, params.wk), _heads(enc_out, params.wv)
+
+
+def cross_apply_cached(params: CrossAttention, cfg: ModelConfig, x: torch.Tensor,
+                       k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Every query of ``x (B, S, d)`` over every encoder position of the
+    cached ``k``, ``v``: the plain, non-causal route (``attention_ref``), as
+    in the reference; no kernel runs here."""
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    o = attention_ref(_heads(x, params.wq), k, v, scale=dh**-0.5, causal=False)
+    return o.transpose(1, 2).reshape(b, s, h * dh) @ params.wo
+
+
+def cross_apply(params: CrossAttention, cfg: ModelConfig, x: torch.Tensor,
+                enc_out: torch.Tensor) -> torch.Tensor:
+    """Cross attention of ``x`` over the encoder output, its K and V
+    projected here."""
+    return cross_apply_cached(params, cfg, x, *cross_kv(params, enc_out))

@@ -3,8 +3,9 @@ padding.
 
 Weights keep the reference's layouts (``(in, out...)`` for dense weights,
 ``(vocab, dim)`` for embeddings) so that ``convert.params_from_jax`` copies
-them as they are.  Every parameter is created with ``requires_grad=False``:
-the port runs inference only.
+them as they are.  Every parameter is created with ``requires_grad=False``,
+for inference; ``training.train_step.init_train_state`` turns it on for a
+model it trains.
 """
 from __future__ import annotations
 
@@ -100,12 +101,22 @@ def make_norm(kind: str, dim: int, *, dtype, device) -> nn.Module:
     return _NORMS[kind](dim, dtype=dtype, device=device)
 
 
+def records_grad(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x``: grad mode on and ``x``
+    requiring grad.  Where it does, an op that overwrites a tensor the
+    backward needs takes its out-of-place form."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     """Gemma-2 soft-capping ``cap·tanh(x/cap)``; ``x`` as it is for None.
     One new tensor, the rest in place: gemma2's float32 logits at b 1,
-    s 8192 are 8.4 GB each."""
+    s 8192 are 8.4 GB each.  Out of place where autograd records (tanh's
+    backward reads its output), with the same numbers."""
     if cap is None:
         return x
+    if records_grad(x):
+        return torch.tanh(x / cap) * cap
     return (x / cap).tanh_().mul_(cap)
 
 

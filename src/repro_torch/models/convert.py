@@ -2,9 +2,10 @@
 
 :func:`params_from_jax` takes the tree the reference's ``init_params``
 returns, with numpy leaves, and loads it into a :class:`DecoderLM`; the
-leading layer dim of ``tree["layers"]`` is sliced into one block each (a
-hybrid's leading ``(n_groups, g)`` is one flat index, ``group · g + j``;
-its ``shared_attn`` has no layer dim).  Tests use it so that both
+leading layer dim of ``tree["layers"]`` (and of whisper's
+``tree["enc_layers"]``) is sliced into one block each (a hybrid's leading
+``(n_groups, g)`` is one flat index, ``group · g + j``; its
+``shared_attn`` has no layer dim).  Tests use it so that both
 packages compute from the same weights.
 """
 from __future__ import annotations
@@ -36,14 +37,20 @@ def params_from_jax(cfg: ModelConfig, tree: dict, *, device=None) -> DecoderLM:
     ``cfg.dtype``, but float32 for an MoE router and an SSM's ``A_log``,
     ``D`` and Mamba-2 ``dt_bias``, as in the reference.  The experts' axis
     moves to the front (``mlp.MoE``).  Raises if a leaf is missing, extra
-    or of another shape than the port's."""
+    or of another shape than the port's.
+
+    Any tree of the parameters' structure converts: the training tests
+    carry the reference's gradients and AdamW moments this way."""
     state = {}
     groups = None
     if cfg.hybrid_attn_every:
         groups = (cfg.n_layers // cfg.hybrid_attn_every, cfg.hybrid_attn_every)
     for name, leaf in _flatten(tree):
         arr = torch.tensor(np.asarray(leaf, dtype=np.float32))
-        if name.startswith("layers."):
+        if name.startswith("enc_layers."):
+            for i in range(arr.shape[0]):
+                state[f"enc_layers.{i}.{name[len('enc_layers.'):]}"] = arr[i]
+        elif name.startswith("layers."):
             rest = name[len("layers."):]
             if groups is not None:
                 if tuple(arr.shape[:2]) != groups:

@@ -50,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init_, param
+from repro_torch.models.common import dense_init_, param, records_grad
 
 STATE_CHUNK_BYTES = 256 * 2**20  # float32 state of one Mamba-1 prefill chunk
 SSD_CHUNK = 64  # time steps of one Mamba-2 SSD chunk
@@ -130,7 +130,9 @@ def mamba1_scan(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Ten
     """The selective scan, float32: dt and x (b, S, di), A (di, N), B and C
     (b, S, N) → ``y_t = h_t·C_t`` (b, S, di), where ``h_t = exp(dt_t·A)·h_{t-1}
     + dt_t·B_t·x_t`` from ``h_{-1} = 0``.  Time in chunks of as many steps
-    as ``STATE_CHUNK_BYTES`` of state hold; one ``addcmul_`` a step."""
+    as ``STATE_CHUNK_BYTES`` of state hold; one ``addcmul_`` a step, in
+    place, or where autograd records (the step before needs its state for
+    the backward) one out-of-place ``addcmul`` a step, the same numbers."""
     b, s, di = x.shape
     n = A.shape[1]
     chunk = max(1, STATE_CHUNK_BYTES // (b * di * n * x.element_size()))
@@ -143,8 +145,15 @@ def mamba1_scan(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Ten
         d = dt_t[t0:t1, :, :, None]
         decay = torch.exp(d * A)  # (T, b, di, N)
         states = d * B_t[t0:t1, :, None, :] * x_t[t0:t1, :, :, None]  # dt·B·x, then h
-        for h_t, a_t in zip(states.unbind(0), decay.unbind(0)):
-            h = h_t.addcmul_(a_t, h)
+        if records_grad(states):  # each step's state stays for the backward
+            hs = []
+            for h_t, a_t in zip(states.unbind(0), decay.unbind(0)):
+                h = torch.addcmul(h_t, a_t, h)
+                hs.append(h)
+            states = torch.stack(hs)
+        else:
+            for h_t, a_t in zip(states.unbind(0), decay.unbind(0)):
+                h = h_t.addcmul_(a_t, h)
         ys[t0:t1] = torch.matmul(states, C_t[t0:t1, :, :, None])[..., 0]
     return ys.transpose(0, 1)
 

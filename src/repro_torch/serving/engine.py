@@ -22,10 +22,13 @@ from repro_torch.models.model import DecoderLM, decode_step, init_cache
 
 
 def make_serve_step(cfg: ModelConfig):
-    """serve_step(params, tokens(B,1), cache) → (logits, cache)."""
+    """serve_step(params, tokens(B,1), cache, enc_out=None) → (logits,
+    cache); an encoder config (whisper) attends across to ``enc_out``, as
+    the reference's passes it."""
 
-    def serve_step(params, tokens, cache):
-        return decode_step(cfg, params, tokens, cache)
+    def serve_step(params, tokens, cache, enc_out=None):
+        kw = {"enc_out": enc_out} if cfg.encoder else {}
+        return decode_step(cfg, params, tokens, cache, **kw)
 
     return serve_step
 

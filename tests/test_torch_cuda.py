@@ -1261,3 +1261,97 @@ def test_trace_lint_on_card_is_within_every_contract(cuda):
         assert r.uploads == r.upload_contract == r.target.startswith("ppr_"), r.line()
     assert reports["blocked"].launches["spmv_csr_acc"] == reports["blocked"].iterations
     assert reports["serving_cuda"].launches["gs_pass_multi"] == 2
+
+
+# ---------------------------------------------------------------------------
+# whisper-medium and the training path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_whisper_encoder_shape(cuda, dtype):
+    """whisper-medium's encoder self-attention at full size: b 2, 16 heads
+    (MHA), 1,500 frames, head dim 64, no causal mask; 1,500 is no multiple
+    of the tiles, so every key block ends in a masked tail.  One launch;
+    every entry within the flash bounds above, a float32 output held
+    against the plain version's float64 result (its own float32 sums over
+    1,500 keys would take part of the bound)."""
+    q, k, v = _qkv(cuda, dtype, 2, 16, 16, 1500, 1500, 64, seed=1500)
+    reset_flash_counts()
+    out = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_counts()["flash_attention"] == 1
+    ct = torch.float64 if dtype == torch.float32 else torch.float32
+    ref = attention_ref(q.to(ct), k.to(ct), v.to(ct), scale=0.125, causal=False)
+    mag = ref.abs()
+    bound = 1e-5 * (mag + mag.mean(dim=-1, keepdim=True))
+    if dtype == torch.bfloat16:
+        bound = bound + 2.0**-8 * mag
+    assert float(((out.to(ct) - ref).abs() / bound).max()) <= 1.0
+
+
+def test_flash_attention_raises_under_grad_on_card(cuda):
+    """No backward, as the TPU kernel: a call that autograd would record
+    raises instead of launching and dropping q's, k's and v's gradients."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 64, seed=3)
+    reset_flash_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k.requires_grad_(True), v)
+    assert flash_counts()["flash_attention"] == 0
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    assert flash_counts()["flash_attention"] == 1
+
+
+def test_whisper_on_card_matches_cpu(cuda):
+    """whisper-medium reduced, float32, b 2, 64 frames, 24 tokens: the
+    card's forward launches the flash kernel once per encoder layer (not
+    causal) and once per decoder layer (4), its logits the CPU's within
+    1e-4 × (|ref| + mean|ref| of the token's row); then 8 decode steps
+    through the cross cache on each device, held the same way."""
+    from repro_torch.models.model import DecoderLM, encode, init_cross_cache
+
+    cfg = dataclasses.replace(get_config("whisper-medium").reduced(), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    host = DecoderLM(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in params.state_dict().items()})
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (2, 24), device=cuda, generator=gen)
+    frames = torch.randn((2, 64, cfg.d_model), device=cuda, generator=gen)
+    reset_flash_counts()
+    out = forward(cfg, params, toks, frames=frames)
+    torch.cuda.synchronize()
+    assert flash_counts()["flash_attention"] == 4
+    assert _logits_worst(out.cpu(), forward(cfg, host, toks.cpu(), frames=frames.cpu())) <= 1e-4
+    cache, hcache = init_cache(cfg, 2, 8, device=cuda), init_cache(cfg, 2, 8, device="cpu")
+    cache["cross"] = init_cross_cache(cfg, params, encode(cfg, params, frames))
+    hcache["cross"] = init_cross_cache(cfg, host, encode(cfg, host, frames.cpu()))
+    for t in range(8):
+        logits, cache = decode_step(cfg, params, toks[:, t:t + 1], cache)
+        ref, hcache = decode_step(cfg, host, toks[:, t:t + 1].cpu(), hcache)
+        assert _logits_worst(logits.cpu(), ref) <= 1e-4
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of stablelm-3b reduced, float32, b 2, s 65, on the
+    card and on the CPU from the same weights and batch: the loss within
+    1e-5 relative, the gradient norm within 1e-4 relative, no flash launch
+    (training takes the plain route)."""
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("stablelm-3b").reduced(), dtype="float32")
+    card = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    host_model = DecoderLM(cfg, device="cpu")
+    host_model.load_state_dict({k: v.detach().cpu() for k, v in card.params.state_dict().items()})
+    host = init_train_state(cfg, params=host_model)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=torch.Generator().manual_seed(5))
+    step = make_train_step(cfg, AdamWConfig(lr=1e-2, warmup_steps=2), ce_chunk=16)
+    reset_flash_counts()
+    _, got = step(card, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert flash_counts()["flash_attention"] == 0
+    _, want = step(host, {"tokens": toks})
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * abs(float(want["loss"]))
+    assert abs(float(got["grad_norm"]) - float(want["grad_norm"])) <= \
+        1e-4 * abs(float(want["grad_norm"]))

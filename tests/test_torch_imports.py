@@ -95,3 +95,12 @@ def test_the_audit_covers_the_build_pipeline_modules(module):
     "analysis/kernels.py"])
 def test_the_audit_covers_the_analysis_modules(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", [
+    "training/__init__.py", "training/optimizer.py", "training/train_step.py",
+    "training/local_sgd.py", "data/__init__.py", "data/tokens.py",
+    "checkpoint/__init__.py", "checkpoint/ckpt.py", "launch/train.py",
+    "configs/whisper_medium.py"])
+def test_the_audit_covers_the_training_and_whisper_modules(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES

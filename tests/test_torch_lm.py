@@ -78,16 +78,16 @@ def tokens(seed, b, s, vocab):
 
 
 def test_config_is_a_copy_of_the_reference():
-    """The five dense, the SSM, the hybrid and the two MoE archs, in the
-    reference's order, each config and its reduced config (the window cut
-    to 64 and the MoE, MLA and SSM sub-configs shrunk included) equal to
-    the reference's; whisper-medium is not ported yet."""
+    """All ten of the reference's archs, in its order, each config and its
+    reduced config (the window cut to 64 and the MoE, MLA, SSM and encoder
+    sub-configs shrunk included) equal to the reference's; an unknown arch
+    raises ``KeyError``."""
     from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 
     assert ARCH_IDS == ("starcoder2-3b", "phi3-medium-14b", "gemma2-2b", "stablelm-3b",
-                        "zamba2-2.7b", "falcon-mamba-7b", "qwen2-vl-2b", "mixtral-8x22b",
-                        "deepseek-v2-236b")
-    assert ARCH_IDS == tuple(a for a in JAX_ARCH_IDS if a in ARCH_IDS)
+                        "zamba2-2.7b", "whisper-medium", "falcon-mamba-7b", "qwen2-vl-2b",
+                        "mixtral-8x22b", "deepseek-v2-236b")
+    assert ARCH_IDS == JAX_ARCH_IDS
     for arch in ARCH_IDS:
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))
         assert dataclasses.asdict(get_config(arch).reduced()) == \
@@ -96,9 +96,10 @@ def test_config_is_a_copy_of_the_reference():
     assert get_config("gemma2-2b").reduced().window == 64
     assert get_config("deepseek-v2-236b").reduced().moe.n_shared == 1
     assert get_config("deepseek-v2-236b").reduced().head_dim == 0
+    assert get_config("whisper-medium").reduced().encoder.n_frames == 64
     assert dataclasses.asdict(reduced(get_config)) == dataclasses.asdict(reduced(jax_get_config))
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("whisper-medium")
+        get_config("whisper-large")
 
 
 def test_full_width_parameter_count():
@@ -356,50 +357,57 @@ def test_cpu_forward_launches_no_kernel(cfg, params):
     ("rope_enabled", False, "whisper"),
 ])
 def test_unported_config_fields_raise(field, value, slice_, cfg):
-    """check_ported names the field and the slice that brings it, and
-    every entry point that builds a model or a cache calls it.  The MoE,
-    MLA, SSM and hybrid fields are ported: on qwen2-vl-2b's reduced config
-    (plain RoPE positions for MLA, which takes no M-RoPE; ``attn="mla"``
-    with the reference's reduced MLA config; ``attn="none"`` with a
-    Mamba-1 config, the pure-SSM stack; ``hybrid_attn_every`` with a
-    Mamba-2 config, one group of 2 SSM layers and the shared block) they
-    build, prefill and decode."""
+    """Every config field the reference runs is ported: on qwen2-vl-2b's
+    reduced config (plain RoPE positions for MLA, which takes no M-RoPE;
+    ``attn="mla"`` with the reference's reduced MLA config; ``attn="none"``
+    with a Mamba-1 config, the pure-SSM stack; ``hybrid_attn_every`` with a
+    Mamba-2 config, one group of 2 SSM layers and the shared block; an
+    ``encoder``, the whisper stack: encoder layers and decoder layers with
+    cross attention, prefilled with frames and decoded through the cross
+    cache; ``rope_enabled=False``, the decoder without rotation) they
+    build, prefill and decode, and ``check_ported`` passes them."""
     from repro_torch.configs import EncoderConfig, MLAConfig, MoEConfig, SSMConfig
+    from repro_torch.models.model import encode, init_cross_cache
 
     fill = {"moe": MoEConfig(4, 2, 64), "mla": MLAConfig(64, 32, 32, 16, 32),
             "ssm": SSMConfig("mamba1", 16), "encoder": EncoderConfig(2, 64, 128)}
     c = dataclasses.replace(cfg, **{field: fill[field] if value == "set" else value})
-    if slice_ in ("MoE", "MLA", "SSM"):
-        if c.attn == "mla":
-            c = dataclasses.replace(c, mla=fill["mla"], mrope=False, head_dim=0)
-        if field == "attn" and value == "none":
-            c = dataclasses.replace(c, ssm=fill["ssm"])
-        if field == "hybrid_attn_every":
-            c = dataclasses.replace(c, ssm=SSMConfig("mamba2", 16, headdim=32))
-        check_ported(c)
-        model = init_params(c, torch.Generator().manual_seed(0), device=CPU)
-        if c.ssm is not None:
-            assert [type(layer).__name__ for layer in model.layers] == ["SSMBlock"] * 2
-            assert type(model.layers[0].ssm).__name__ == ("Mamba2" if c.hybrid_attn_every
-                                                          else "Mamba1")
-            assert hasattr(model, "shared_attn") == bool(c.hybrid_attn_every)
-        else:
-            assert type(model.layers[0].attn).__name__ == (
-                "MLAttention" if c.attn == "mla" else "GQAttention")
-            assert type(model.layers[0].mlp).__name__ == ("MoE" if c.moe else "MLP")
-        toks = torch.from_numpy(tokens(12, 2, 8, c.vocab))
-        logits = forward(c, model, toks)
-        cache = init_cache(c, 2, 8, device=CPU)
-        step, _ = decode_step(c, model, toks[:, :1], cache)
-        assert logits.shape == (2, 8, 512) and step.shape == (2, 1, 512)
-        assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all())
+    if c.attn == "mla":
+        c = dataclasses.replace(c, mla=fill["mla"], mrope=False, head_dim=0)
+    if field == "attn" and value == "none":
+        c = dataclasses.replace(c, ssm=fill["ssm"])
+    if field == "hybrid_attn_every":
+        c = dataclasses.replace(c, ssm=SSMConfig("mamba2", 16, headdim=32))
+    check_ported(c)
+    model = init_params(c, torch.Generator().manual_seed(0), device=CPU)
+    if c.ssm is not None:
+        assert [type(layer).__name__ for layer in model.layers] == ["SSMBlock"] * 2
+        assert type(model.layers[0].ssm).__name__ == ("Mamba2" if c.hybrid_attn_every
+                                                      else "Mamba1")
+        assert hasattr(model, "shared_attn") == bool(c.hybrid_attn_every)
+    elif c.encoder is not None:
+        assert [type(layer).__name__ for layer in model.layers] == ["CrossDecoderBlock"] * 2
+        assert [type(layer).__name__ for layer in model.enc_layers] == ["EncoderBlock"] * 2
     else:
-        for build in (check_ported, lambda c: init_params(c, device=CPU),
-                      lambda c: init_cache(c, 1, 8, device=CPU)):
-            with pytest.raises(NotImplementedError, match=f"{field}=.*{slice_}"):
-                build(c)
+        assert type(model.layers[0].attn).__name__ == (
+            "MLAttention" if c.attn == "mla" else "GQAttention")
+        assert type(model.layers[0].mlp).__name__ == ("MoE" if c.moe else "MLP")
+    toks = torch.from_numpy(tokens(12, 2, 8, c.vocab))
+    cache = init_cache(c, 2, 8, device=CPU)
+    kw = {}
+    if c.encoder is not None:
+        frames = torch.randn(2, 64, 128, generator=torch.Generator().manual_seed(1))
+        kw["frames"] = frames
+        cache["cross"] = init_cross_cache(c, model, encode(c, model, frames))
+    logits = forward(c, model, toks, **kw)
+    step, _ = decode_step(c, model, toks[:, :1], cache)
+    assert logits.shape == (2, 8, 512) and step.shape == (2, 1, 512)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all())
+    if field == "rope_enabled":  # no rotation: a decoder that sees no positions
+        rotated = forward(cfg, model, toks)
+        assert not torch.allclose(rotated, logits)
     check_ported(cfg)  # qwen2-vl-2b's own fields pass
-    for arch in ARCH_IDS:  # and every ported arch's
+    for arch in ARCH_IDS:  # and every arch's
         check_ported(get_config(arch))
 
 

@@ -258,7 +258,25 @@ Phases, one or more lines each; any failure exits non-zero:
                replicas (equal after the int8 sync); a --preset 100m run
                checkpointed every 2 steps, restored from LATEST and saved
                again bit for bit, and resumed; one reduced float32 step,
-               card against CPU.
+               card against CPU;
+24. dryrun  — the dry run's counts (repro_torch.launch.dryrun) held to the
+               card: qwen2-vl-2b's bf16 prefill of phase 16 (b 2, s 4096)
+               walked on the meta device by build_cell at full depth and
+               run on the card with the same seeded weights under the same
+               counting mode (repro_torch.utils.cost): equal FLOPs, flash
+               ops equal to the kernel's launches (28), parameter bytes on
+               the card equal to the dry run's argument bytes on a 1 x 1
+               mesh; the counted TFLOP of phase 16's timed prefill, its
+               TFLOP/s and share of 989 TFLOP/s (mfu), its roofline terms
+               against its wall, the counted peak bytes against
+               torch.cuda.max_memory_allocated, the dispatcher's cost a
+               call of the flash op; the same FLOP check and mfu for
+               phase 23's stablelm-3b train step (seq 256, batch 8), and
+               AdamW's counted bytes over its measured time (bytes a
+               second, share of 3.35 TB/s); and the whole grid
+               (--all --both-meshes) in a host child started right after
+               the build, beside the card phases: 0 failed, exactly the
+               reference's cells skipped, its wall and peak RSS.
 
 Each phase ends with its host wall on a line ``phase <name>: wall_s=``.
 It then prints one JSON line naming every kernel (its ``timed_by`` says
@@ -280,7 +298,17 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+SRC = os.path.join(ROOT, "src")
+if os.path.isdir(os.path.join(SRC, "repro_torch")):  # else main() stops first
+    sys.path.insert(0, SRC)
+    # the H100's peaks (NVIDIA data sheet) and the bounds set beside every kernel
+    from repro_torch.utils.roofline import (
+        BF16_TC_FLOPS,
+        HBM_BYTES_PER_S,
+        attention_pairs,
+        bound_ms,
+        flash_bound,
+    )
 # A kernel agrees with its plain version when its max abs error is
 # ≤ KERNEL_RTOL · max|plain| and every entry is within KERNEL_RTOL · (its
 # |plain| + the mean |plain| of its rank row): the sums differ only in
@@ -347,10 +375,7 @@ ENGINE_QUERIES = 32
 ENGINE_THRESHOLD = 1e-6
 TIE = 1e-7  # oracle values this close may swap places in a top-k
 TOPK_VALUE_TOL = 1e-5
-# flash attention and the LM path.  Peaks: H100 SXM dense bf16 tensor-core
-# rate and float32 rate outside the tensor cores, NVIDIA data sheet.
-BF16_TC_FLOPS = 989e12
-FP32_FLOPS = 67e12
+# flash attention and the LM path.
 # flash_attention agrees with its plain version when every entry is within
 # FLASH_RTOL·(|ref| + the mean |ref| of its row): a float32 output against
 # the plain result evaluated in float64, a bfloat16 output against the
@@ -600,14 +625,6 @@ def batch_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound_ms(nbytes: float) -> float:
-    """Least time to move ``nbytes`` at the card's memory rate.  Every
-    kernel here does a few float32 operations per 4–8 bytes it must move,
-    far below the H100's 20 operations per byte of float32 rate over
-    memory rate, so each is bound by bytes."""
-    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def agreement(out, ref) -> tuple[float, float, float]:
@@ -2254,7 +2271,8 @@ def spmv_times(g, bg, dev, pr, csr_bytes):
 # ru_maxrss is reported beside them but is no measure of the child: Linux
 # carries the parent's peak over the exec of a forked child, so it reads
 # at least the parent's RSS at the fork.  argv is the launcher's
-# ``build ...``, or ``make_dataset NAME SCALE_DOWN`` (the in-RAM path,
+# ``build ...``, ``dryrun`` and the dry run's arguments (its exit code in
+# ``code``), or ``make_dataset NAME SCALE_DOWN`` (the in-RAM path,
 # scripts/build_rss.py's comparison).
 RSS_CHILD = """
 import json, os, resource, sys, threading
@@ -2284,6 +2302,9 @@ if sys.argv[1] == "build":
     from repro_torch.launch import pagerank_run
     rep = pagerank_run.run(sys.argv[1:])
     rep = {k: rep[k] for k in ("stages", "n", "m", "nbytes")}
+elif sys.argv[1] == "dryrun":
+    from repro_torch.launch import dryrun
+    rep = dict(code=dryrun.main(sys.argv[2:]))
 else:
     from repro_torch.graphs import make_dataset
     g = make_dataset(sys.argv[2], scale_down=float(sys.argv[3]))
@@ -2303,7 +2324,7 @@ print(json.dumps(dict(rep, sampled_peak=peak[0], status=mem,
 """
 
 
-def rss_child(argv: list[str], echo: bool = True) -> dict:
+def rss_child(argv: list[str], echo: bool = True, timeout: float = BUILD_CHILD_TIMEOUT) -> dict:
     """RSS_CHILD on ``argv`` in a child process; returns its report (for
     ``build``: stages, n, m, nbytes), its peak RSS in bytes as the child
     read it (``sampled_peak``, ``hwm``: None where not measured;
@@ -2315,7 +2336,7 @@ def rss_child(argv: list[str], echo: bool = True) -> dict:
         [os.path.join(ROOT, "src")] + [p for p in [env.get("PYTHONPATH")] if p])
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-c", RSS_CHILD, *argv], env=env,
-                         capture_output=True, text=True, timeout=BUILD_CHILD_TIMEOUT)
+                         capture_output=True, text=True, timeout=timeout)
     lines = out.stdout.splitlines()
     if echo:
         for line in lines[:-1]:
@@ -2725,27 +2746,6 @@ def faults_phase(g, dev):
         print(f"faults: {plan_name:10s} " + " ".join(f"{c:>14s}" for c in cells))
     print(f"faults: simulate walls, card {walls['card']:.1f}s, CPU "
           f"{walls['cpu']:.1f}s, over {len(runs)} runs each", flush=True)
-
-
-def attention_pairs(sq, sk, causal, window) -> int:
-    """Live (query, key) pairs of one head: the work this input needs."""
-    row = np.arange(sq)
-    hi = np.minimum(row, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(row - window + 1, 0) if window else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
-def flash_bound(q, k, causal, window) -> tuple[float, str, float, float]:
-    """Least time of one attention call: 4·dh flops per live pair over the
-    dtype's peak, against each operand read once and the output written
-    once over the memory rate.  Returns (ms, bound_by, flops, bytes)."""
-    b, hq, sq, dh = q.shape
-    _, hkv, sk, _ = k.shape
-    flops = 4.0 * dh * b * hq * attention_pairs(sq, sk, causal, window)
-    nbytes = q.element_size() * (2 * b * hq * sq * dh + 2 * b * hkv * sk * dh)
-    peak = BF16_TC_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
-    ops_ms, bytes_ms = flops / peak * 1e3, bound_ms(nbytes)
-    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes
 
 
 def flash_design(bf16: bool, lib=None) -> str:
@@ -3229,7 +3229,8 @@ def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None,
     decode (where the sparse dispatch drops nothing either), and report
     the tokens whose experts differ between the compared runs
     (:func:`routing_flips`), leaving them out of the comparison.  Returns
-    the prefill's flash launches, the float32 config and model."""
+    the prefill's flash launches, the float32 config and model, and the
+    best wall of the timed kernel-route prefill (seconds)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3468,7 +3469,7 @@ def lm_phase(dev, arch: str, b: int, s: int, f32_layers: int | None = None,
                 extra=f"device ops={device_launches(rows)} ")
     print(f"lm: {arch} peak memory from the prefill on "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB", flush=True)
-    return launches, cfg32, params32
+    return launches, cfg32, params32, min(walls)
 
 
 def serve_full(arch: str) -> None:
@@ -3602,7 +3603,7 @@ def moe_phase(dev) -> dict:
     for arch, b, s, layers, f32_layers in MOE_LMS:
         torch.cuda.empty_cache()
         with phase_wall(f"moe {arch}"):
-            n, cfg32, params32 = lm_phase(dev, arch, b, s, f32_layers, layers=layers)
+            n, cfg32, params32, _ = lm_phase(dev, arch, b, s, f32_layers, layers=layers)
             serve_held(cfg32, params32, 1, MOE_SERVE_LEN)
             serve_finishes(cfg32, params32, 4)
         del cfg32, params32
@@ -3778,7 +3779,7 @@ def whisper_phase(dev) -> int:
     return launches
 
 
-def train_phase(dev) -> None:
+def train_phase(dev) -> dict:
     """The training launcher (repro_torch.launch.train.run) on the card:
     stablelm-3b at --preset full (32 layers, d_model 2560, 2.8 B
     parameters in bf16, float32 AdamW moments) for TRAIN_STEPS sync steps
@@ -3792,7 +3793,9 @@ def train_phase(dev) -> None:
     4 steps checkpointed every 2, then a run of 0 steps restores LATEST
     and saves it again bit for bit, then a run resumes from it; last, one
     train step at stablelm-3b's reduced float32 config on the card and on
-    the CPU from the same weights."""
+    the CPU from the same weights.  Returns the full preset's median
+    seconds a step (``step_s``, after the first) and ``adamw_update``'s
+    milliseconds (``opt_ms``)."""
     import dataclasses
     import shutil
     import tempfile
@@ -3901,18 +3904,198 @@ def train_phase(dev) -> None:
           f"{float(got['loss']):.6f} ({loss_rel:.3e} relative, bound {TRAIN_LOSS_RTOL:g}), "
           f"gradient norm {float(got['grad_norm']):.6f} ({norm_rel:.3e}, bound "
           f"{TRAIN_NORM_RTOL:g})", flush=True)
+    return {"step_s": step_s, "opt_ms": opt_ms}
+
+
+DRYRUN_JSON = os.path.join(ROOT, "build", "smoke_dryrun.json")
+DRYRUN_TIMEOUT = 900  # seconds for the grid's child (about 300 on 8 idle cores)
+FLASH_OP = "repro_torch.flash_attention"  # the dispatcher op, as CostMode names it
+
+
+def start_dryrun_child():
+    """The dry run's whole grid (``repro_torch.launch.dryrun --all
+    --both-meshes --json DRYRUN_JSON``) in a host child under RSS_CHILD,
+    started beside the card phases, as :func:`start_build_children`'s are:
+    it walks every cell on the meta device and touches no GPU.  Returns the
+    future of its report."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    os.makedirs(os.path.dirname(DRYRUN_JSON), exist_ok=True)
+    argv = ["dryrun", "--all", "--both-meshes", "--json", DRYRUN_JSON]
+    pool = ThreadPoolExecutor(1)
+    child = pool.submit(rss_child, argv, False, DRYRUN_TIMEOUT)
+    pool.shutdown(wait=False)
+    return child
+
+
+def per_call_us(fn, calls: int = 2000) -> float:
+    """Host microseconds a call of ``fn`` over ``calls`` calls made back to
+    back, the card synchronised once at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def dryrun_phase(dev, prefill_s: float, train: dict, child) -> None:
+    """The dry run's counts held to the card (module docstring, phase 24):
+    ``prefill_s`` is phase 16's best prefill wall, ``train`` phase 23's
+    seconds a step and AdamW milliseconds, ``child`` the grid's future."""
+    from repro_torch.configs import ARCH_IDS, SHAPES, ShapeSpec, cell_runnable, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import abstract_train_state, argument_bytes, build_cell
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.training import AdamWConfig, adamw_update, init_train_state
+    from repro_torch.utils.cost import CostMode
+    from repro_torch.utils.roofline import Roofline
+
+    mesh = make_host_mesh()
+    cfg = get_config("qwen2-vl-2b")
+    step, args, specs, _ = build_cell(cfg, ShapeSpec("prefill", LM_SEQ, LM_BATCH, "prefill"), mesh)
+    t0 = time.perf_counter()
+    with CostMode() as walk:
+        step(*args)
+    with CostMode() as walk_full, torch.no_grad():  # phase 16's timed forward, with the head
+        forward(cfg, args[0], args[1]["tokens"])
+    walk_s = time.perf_counter() - t0
+    param_bytes = argument_bytes(args[0], specs[0], mesh)
+    del args
+    # phase 16's weights and tokens, from the same seeded generators
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ),
+                         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    card_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    check(card_bytes == param_bytes, f"qwen2-vl-2b: {card_bytes} parameter bytes on the card, "
+          f"the dry run's argument bytes on 1 x 1 {param_bytes}")
+    fa.reset_launch_counts()
+    with CostMode() as card:
+        step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+    launches = fa.launch_counts()["flash_attention"]
+    with CostMode() as card_full, torch.no_grad():
+        forward(cfg, params, toks)
+        torch.cuda.synchronize()
+    check(card.flops == walk.flops and card_full.flops == walk_full.flops,
+          f"qwen2-vl-2b prefill FLOPs: card {card.flops} / {card_full.flops}, meta "
+          f"{walk.flops} / {walk_full.flops}")
+    check(card.ops[FLASH_OP] == walk.ops[FLASH_OP] == launches == cfg.n_layers,
+          f"qwen2-vl-2b prefill: flash ops card {card.ops[FLASH_OP]}, meta "
+          f"{walk.ops[FLASH_OP]}, launches {launches}, layers {cfg.n_layers}")
+    # the timed forward's peak, outside the mode, against the counted one
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with torch.no_grad():
+        out = forward(cfg, params, toks)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del out
+    predicted = param_bytes + toks.numel() * toks.element_size() + walk_full.peak_bytes
+    roof = Roofline(flops=walk_full.flops, bytes_accessed=walk_full.bytes, collective_bytes=0)
+    tflops = walk_full.flops / prefill_s / 1e12
+    print(f"dryrun: qwen2-vl-2b bf16 prefill b={LM_BATCH} s={LM_SEQ} walked on meta at full "
+          f"depth ({walk_s:.1f}s for both walks) and run on the card under the same counting "
+          f"mode: FLOPs equal ({walk.flops} features only, {walk_full.flops} with the head), "
+          f"flash ops {walk.ops[FLASH_OP]} = launches {launches}, parameter bytes "
+          f"{card_bytes} = the dry run's argument bytes on 1 x 1", flush=True)
+    print(f"dryrun: qwen2-vl-2b prefill (phase 16's timed forward, {prefill_s * 1e3:.2f} ms): "
+          f"{walk_full.flops / 1e12:.3f} TFLOP counted, {tflops:.1f} TFLOP/s, mfu "
+          f"{tflops * 1e12 / BF16_TC_FLOPS:.4f} of 989 TFLOP/s; roofline compute "
+          f"{roof.t_compute * 1e3:.2f} ms, memory {roof.t_memory * 1e3:.2f} ms "
+          f"({walk_full.bytes / 1e9:.2f} GB of eager traffic counted) against the wall "
+          f"{prefill_s * 1e3:.2f} ms ({roof.dominant} bound, {roof.step_time / prefill_s:.4f} "
+          f"of it)", flush=True)
+    print(f"dryrun: qwen2-vl-2b prefill peak memory: counted {predicted / 2**30:.3f} GiB "
+          f"(parameters and tokens {(param_bytes + toks.numel() * toks.element_size()) / 2**30:.3f}"
+          f" + the walk's peak {walk_full.peak_bytes / 2**30:.3f}), max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB (ratio {peak / predicted:.4f}; above what was allocated "
+          f"before, {(peak - base) / 2**30:.3f} GiB, {(peak - base) / walk_full.peak_bytes:.4f} "
+          f"of the walk's peak)", flush=True)
+    del params, toks
+    # the dispatcher's cost a call of the flash op, at a shape where the host is slower
+    q, k, v = (torch.randn((1, 2, 64, 64), device=dev, dtype=torch.bfloat16) for _ in range(3))
+    via_op = [per_call_us(lambda: fa_kernel.flash_attention_op(q, k, v, 0.125, True, None))]
+    direct = [per_call_us(lambda: fa_kernel._flash_attention_cuda(q, k, v, 0.125, True, None))]
+    direct.append(per_call_us(lambda: fa_kernel._flash_attention_cuda(q, k, v, 0.125, True, None)))
+    via_op.append(per_call_us(lambda: fa_kernel.flash_attention_op(q, k, v, 0.125, True, None)))
+    cost_us = statistics.mean(via_op) - statistics.mean(direct)
+    print(f"dryrun: the flash op through the dispatcher {statistics.mean(via_op):.1f} us a call, "
+          f"its CUDA implementation called directly {statistics.mean(direct):.1f} us (host, "
+          f"2,000 calls each, op/direct/direct/op): {cost_us:.1f} us a call, "
+          f"{cost_us * cfg.n_layers / 1e3:.3f} ms of the {prefill_s * 1e3:.2f} ms prefill "
+          f"({cfg.n_layers} calls)", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    cfg = get_config(TRAIN_ARCH)
+    step, args, _, _ = build_cell(cfg, ShapeSpec("train", 256, 8, "train"), mesh)
+    with CostMode() as walk:
+        step(*args)
+    del args
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.randint(0, cfg.vocab, (8, 256), generator=torch.Generator(device=dev).manual_seed(3),
+                         device=dev).to(torch.int32)
+    with CostMode() as card:
+        step(state, {"tokens": toks})
+        torch.cuda.synchronize()
+    check(card.flops == walk.flops, f"{TRAIN_ARCH} train step FLOPs: card {card.flops}, meta "
+          f"{walk.flops}")
+    del state, toks
+    torch.cuda.empty_cache()
+    tflops = walk.flops / train["step_s"] / 1e12
+    state = abstract_train_state(cfg)
+    named = dict(state.params.named_parameters())
+    grads = {name: torch.empty_like(p) for name, p in named.items()}
+    with CostMode() as opt:
+        adamw_update(AdamWConfig(), named, grads, state.opt)
+    rate = opt.bytes / (train["opt_ms"] / 1e3)
+    print(f"dryrun: {TRAIN_ARCH} train step (seq 256, batch 8; the launcher's ce_chunk 128 "
+          f"and build_cell's 512 both make one loss chunk of 255): FLOPs equal on meta and "
+          f"the card ({walk.flops}, {walk.flops / 1e12:.3f} TFLOP); at phase 23's "
+          f"{train['step_s']:.3f} s a step {tflops:.1f} TFLOP/s, mfu "
+          f"{tflops * 1e12 / BF16_TC_FLOPS:.4f} of 989 TFLOP/s; adamw_update: "
+          f"{opt.bytes / 1e9:.3f} GB counted (each op's inputs and outputs once) in phase "
+          f"23's {train['opt_ms']:.1f} ms, {rate / 1e12:.3f} TB/s, "
+          f"{rate / HBM_BYTES_PER_S:.4f} of 3.35 TB/s", flush=True)
+    del state, named, grads
+
+    rep = child.result()
+    for line in rep["lines"]:
+        if line.startswith("== dry-run"):
+            print(f"dryrun: grid {line}")
+    with open(DRYRUN_JSON) as f:
+        records = json.load(f)
+    want_skip = {(a, name) for a in ARCH_IDS for name in SHAPES
+                 if not cell_runnable(get_config(a), SHAPES[name])[0]}
+    skipped = {(r["arch"], r["shape"]) for r in records if r["status"] == "skipped"}
+    failed = [r for r in records if r["status"] not in ("ok", "skipped")]
+    check(rep["code"] == 0 and not failed and skipped == want_skip
+          and len(records) == 2 * len(ARCH_IDS) * len(SHAPES),
+          f"dry-run grid: exit {rep['code']}, {len(failed)} failed "
+          f"({[r.get('error') for r in failed][:3]}), skipped {sorted(skipped ^ want_skip)} "
+          f"other than the reference's")
+    peak_rss = rep["sampled_peak"]
+    print(f"dryrun: grid --all --both-meshes in a host child beside the card phases: "
+          f"{len(records) - 2 * len(want_skip)} cells ok, {2 * len(want_skip)} skipped as the "
+          f"reference skips them, 0 failed; wall {rep['wall_s']:.1f}s, peak RSS "
+          f"{'not measured' if peak_rss is None else f'{peak_rss / 2**30:.2f} GiB'}",
+          flush=True)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    src = os.path.join(ROOT, "src")
-    if not os.path.isdir(os.path.join(src, "repro_torch")):
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside chip_smoke.py",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, src)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     # float32 comparisons below hold float32 products, not TF32
@@ -3939,6 +4122,7 @@ def main() -> int:
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f}s", flush=True)
     for path, _ in built:
         print(f"build: {os.path.relpath(path, ROOT)}")
+    dry_child = start_dryrun_child()  # the dry run's grid, on the host, beside the card
 
     with phase_wall("analysis"):
         analysis_phase()
@@ -3995,7 +4179,7 @@ def main() -> int:
         flash = flash_kernel_phase(dev)
     fa_paths = {}  # {prefill of a model: flash launches}
     with phase_wall("prefill and decode"):
-        fa_paths["qwen2-vl-2b prefill"], cfg32, params32 = lm_phase(
+        fa_paths["qwen2-vl-2b prefill"], cfg32, params32, prefill_s = lm_phase(
             dev, "qwen2-vl-2b", LM_BATCH, LM_SEQ)
     with phase_wall("serve"):
         serve_phase(cfg32, params32)
@@ -4017,7 +4201,10 @@ def main() -> int:
         fa_paths["whisper-medium prefill"] = whisper_phase(dev)
     torch.cuda.empty_cache()
     with phase_wall("train"):
-        train_phase(dev)
+        train_stats = train_phase(dev)
+    torch.cuda.empty_cache()
+    with phase_wall("dryrun"):
+        dryrun_phase(dev, prefill_s, train_stats, dry_child)
     torch.cuda.empty_cache()
     with phase_wall("build"):
         build_stats, bfs_stats, paths = build_phase(g, dev, children)

@@ -78,6 +78,12 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long_500k cell: SSM, hybrid and sliding-window
+        archs; pure full-attention archs are skipped, as in the reference."""
+        return self.attn in ("swa", "none") or self.ssm is not None or self.hybrid_attn_every > 0
+
     def reduced(self) -> "ModelConfig":
         """CI-sized config of the same family for smoke tests, the
         reference's ``reduced``: the sliding window cut to at most 64; the

@@ -14,14 +14,17 @@ def resolve_device(device=None) -> torch.device:
     """``device`` as a :class:`torch.device`; ``None`` means ``cuda``.
 
     Asking for CUDA where there is none raises: the port never drops quietly
-    to the CPU, so a CPU run is always one the caller asked for."""
+    to the CPU, so a CPU run is always one the caller asked for.  ``meta``
+    is taken where a caller names it: the dry run's abstract cells
+    (``repro_torch.launch.specs``) build models, caches and inputs there,
+    shapes and dtypes without storage."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; expected cuda, cpu or meta")
     return dev
 
 

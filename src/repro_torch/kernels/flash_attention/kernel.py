@@ -1,18 +1,29 @@
 """Wrapper of the hand-written CUDA flash-attention kernel.
 
-:func:`flash_attention_kernel` checks its operands and, for CUDA tensors,
+:func:`flash_attention_kernel` checks its operands and calls the
+dispatcher op ``repro_torch::flash_attention``.  Its CUDA implementation
 launches ``csrc/flash_attention.cu`` on the current stream, raises if the
-launch fails and adds one to its count (:func:`launch_counts`).  For CPU
-tensors it calls the plain version
+launch fails and adds one to its count (:func:`launch_counts`).  Its CPU
+implementation is the plain version
 (:func:`repro_torch.kernels.flash_attention.ref.attention_ref`) — only
 because the tensors lie on the CPU; there is no fallback from the card.
+Its fake (meta) implementation gives the output's shape and dtype, so the
+dry run (``repro_torch.launch.specs``) walks the kernel route on the meta
+device; its FLOP formula (:func:`repro_torch.utils.roofline.flash_flops`)
+is registered with ``torch.utils.flop_counter``, so a counting mode
+(``repro_torch.utils.cost``) counts the kernel's work on the card, on the
+CPU and on meta alike.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.flash_attention import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.utils.roofline import flash_flops
 
 # head dims the CUDA kernel is instantiated for (csrc/flash_attention.cu):
 # 32 for the reduced configs, 64 for the reference's test matrix, 80 for
@@ -50,7 +61,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k, v must lie on one device; got {q.device}, "
                          f"{k.device}, {v.device}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
@@ -90,23 +101,49 @@ def flash_attention_kernel(
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError("flash_attention has no backward: call it under torch.no_grad() "
                            "or take the plain route (use_flash_kernel=False) to train")
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, scale=scale, causal=causal, window=window)
-    dh = q.shape[-1]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head_dim {dh} is not supported by the CUDA flash "
-                         f"kernel; supported: {HEAD_DIMS}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k, v must be contiguous")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("bfloat16 q, k, v must start on 16-byte boundaries "
-                         "(the kernel's TMA tensor maps)")
+    if q.device.type != "cpu":  # the card, or meta standing in for it
+        dh = q.shape[-1]
+        if dh not in HEAD_DIMS:
+            raise ValueError(f"head_dim {dh} is not supported by the CUDA flash "
+                             f"kernel; supported: {HEAD_DIMS}")
+        if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+            raise ValueError("q, k, v must be contiguous")
+        if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("bfloat16 q, k, v must start on 16-byte boundaries "
+                             "(the kernel's TMA tensor maps)")
+    return flash_attention_op(q, k, v, float(scale), bool(causal), window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cpu")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                       causal: bool, window: Optional[int]) -> torch.Tensor:
+    """The dispatcher op behind :func:`flash_attention_kernel`, which checks
+    its operands first; this body is its CPU implementation, the plain
+    version, registered for the CPU alone (the CUDA kernel is
+    :func:`_flash_attention_cuda`)."""
+    return attention_ref(q, k, v, scale=scale, causal=causal, window=window)
+
+
+@flash_attention_op.register_kernel("cuda")
+def _flash_attention_cuda(q, k, v, scale, causal, window):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     launch(build.load(), q, k, v, out, scale=scale, causal=causal, window=window)
     _LAUNCHES["flash_attention"] += 1
     return out
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, scale, causal, window):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, scale, causal, window, *,
+                           out_shape=None, **kwargs) -> int:
+    b, hq, sq, dh = q_shape
+    return flash_flops(b, hq, sq, k_shape[2], dh, causal, window)
 
 
 def launch(lib, q, k, v, out, *, scale: float, causal: bool, window: int | None) -> None:

@@ -1355,3 +1355,67 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * abs(float(want["loss"]))
     assert abs(float(got["grad_norm"]) - float(want["grad_norm"])) <= \
         1e-4 * abs(float(want["grad_norm"]))
+
+
+# the prefill shapes of PERF.md's flash table (chip_smoke.FLASH_TIMED):
+# (b, hq, hkv, s, dh, window, causal)
+FLASH_COUNTED = [
+    (2, 12, 2, 4096, 128, None, True),  # qwen2-vl-2b
+    (2, 32, 32, 4096, 80, None, True),  # stablelm-3b
+    (2, 24, 2, 8192, 128, 4096, True),  # starcoder2-3b
+    (1, 48, 8, 8192, 128, 4096, True),  # mixtral-8x22b
+    (2, 16, 16, 1500, 64, None, False),  # whisper-medium's encoder
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,dh,window,causal", FLASH_COUNTED)
+def test_flash_op_count_on_card_is_flash_flops(cuda, b, hq, hkv, s, dh, window, causal):
+    """The counting mode sees the kernel's launch as one dispatcher op and
+    counts ``flash_flops`` for it (4·dh a live pair), on the card as on
+    meta; the call launches the kernel once."""
+    from repro_torch.utils.cost import CostMode
+    from repro_torch.utils.roofline import flash_flops
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((b, hq, s, dh), device=cuda, dtype=torch.bfloat16, generator=gen)
+    k, v = (torch.randn((b, hkv, s, dh), device=cuda, dtype=torch.bfloat16, generator=gen)
+            for _ in range(2))
+    want = flash_flops(b, hq, s, s, dh, causal, window)
+    reset_flash_counts()
+    with CostMode() as card:
+        flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+    assert flash_counts()["flash_attention"] == 1
+    qm, km, vm = (t.to("meta") for t in (q, k, v))
+    with CostMode() as meta:
+        flash_attention(qm, km, vm, causal=causal, window=window)
+    assert card.flops == meta.flops == want
+    assert card.ops["repro_torch.flash_attention"] == 1
+    assert card.bytes == meta.bytes == 2 * (2 * q.numel() + 2 * k.numel())
+
+
+def test_reduced_prefill_counts_on_card_as_on_meta(cuda):
+    """qwen2-vl-2b reduced, bf16, prefill at b 2, s 256 on the kernel route:
+    build_cell's step walked on meta and run on the card under the same
+    counting mode give the same FLOPs and peak bytes, and the flash ops
+    the walk counts are the kernel's launches on the card."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.utils.cost import CostMode
+
+    cfg = get_config("qwen2-vl-2b").reduced()
+    step, args, _, _ = build_cell(cfg, ShapeSpec("small", 256, 2, "prefill"), make_host_mesh())
+    with CostMode() as meta:
+        step(*args)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 256), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    reset_flash_counts()
+    with CostMode() as card:
+        step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+    assert card.flops == meta.flops > 0
+    assert card.peak_bytes == meta.peak_bytes
+    assert card.ops["repro_torch.flash_attention"] == meta.ops["repro_torch.flash_attention"] \
+        == flash_counts()["flash_attention"] == cfg.n_layers

@@ -104,3 +104,11 @@ def test_the_audit_covers_the_analysis_modules(module):
     "configs/whisper_medium.py"])
 def test_the_audit_covers_the_training_and_whisper_modules(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", [
+    "utils/__init__.py", "utils/roofline.py", "utils/flops.py", "utils/cost.py",
+    "sharding/__init__.py", "sharding/rules.py", "launch/mesh.py", "launch/specs.py",
+    "launch/dryrun.py", "configs/__init__.py"])
+def test_the_audit_covers_the_dryrun_modules(module):
+    assert ROOT / "src" / "repro_torch" / module in FILES

@@ -253,7 +253,13 @@ Phases, one or more lines each; any failure exits non-zero:
                parameters, bf16) for 4 sync steps at seq 256, global
                batch 8: finite losses and norms, every parameter moved, no
                flash launch (training takes the plain route), seconds a
-               step, peak memory and AdamW's share of a step;
+               step, peak memory and AdamW's share of a step; on that
+               state 3 steps at train_4k's share of one chip (seq 4,096,
+               batch 1), every layer rematerialized as in the reference:
+               finite, every parameter moved, max_memory_allocated under
+               80 GB and within 1.00-1.10x of the argument bytes plus the
+               meta walk's rematerialized peak (the walk without remat a
+               count only);
                whisper-medium --preset 100m for 2 steps; local SGD over 2
                replicas (equal after the int8 sync); a --preset 100m run
                checkpointed every 2 steps, restored from LATEST and saved
@@ -271,7 +277,8 @@ Phases, one or more lines each; any failure exits non-zero:
                against its wall, the counted peak bytes against
                torch.cuda.max_memory_allocated, the dispatcher's cost a
                call of the flash op; the same FLOP check and mfu for
-               phase 23's stablelm-3b train step (seq 256, batch 8), and
+               phase 23's stablelm-3b train step (seq 256, batch 8), with
+               the recompute's share of its FLOPs, and
                AdamW's counted bytes over its measured time (bytes a
                second, share of 3.35 TB/s); and the whole grid
                (--all --both-meshes) in a host child started right after
@@ -412,6 +419,11 @@ TRAIN_ARGV = ["--seq-len", "256", "--global-batch", "8", "--log-every", "1"]
 TRAIN_STEPS = 4
 TRAIN_LOSS_RTOL = 1e-5  # one reduced f32 step, card against CPU
 TRAIN_NORM_RTOL = 1e-4
+# then train_4k's share of one chip (4,096 tokens x 256 sequences on 256
+# chips) on the same state: the card's peak against the rematerialized walk's
+TRAIN_LONG_SEQ = 4096
+TRAIN_LONG_STEPS = 3
+TRAIN_PEAK_BAND = (1.00, 1.10)
 FLASH_TIMED = (  # (model, (b, hq, hkv, s, dh), windows, causal)
     ("qwen2-vl-2b", (LM_BATCH, 12, 2, LM_SEQ, 128), (None, 512), True),
     ("stablelm-3b", (2, 32, 32, 4096, 80), (None,), True),
@@ -3779,13 +3791,104 @@ def whisper_phase(dev) -> int:
     return launches
 
 
+def walk_train(cell, *, remat: bool):
+    """``build_cell``'s train step of TRAIN_ARCH at the full config and
+    ``cell``, walked on the meta device under CostMode; with ``remat``
+    False the step's forward keeps every activation (a count only: the
+    train step always rematerializes).  The mode and the cell's argument
+    bytes on a 1 x 1 mesh."""
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import argument_bytes, build_cell
+    from repro_torch.models import model
+    from repro_torch.training import train_step
+    from repro_torch.utils.cost import CostMode
+
+    mesh = make_host_mesh()
+    step, args, specs, _ = build_cell(get_config(TRAIN_ARCH), cell, mesh)
+    train_step.forward = functools.partial(model.forward, remat=remat)
+    try:
+        with CostMode() as walk:
+            step(*args)
+    finally:
+        train_step.forward = model.forward
+    return walk, argument_bytes(args, specs, mesh)
+
+
+def train_long(dev, state, n_tensors: int) -> None:
+    """TRAIN_LONG_STEPS steps at train_4k's share of one chip (seq
+    TRAIN_LONG_SEQ, batch 1) on ``state``, the train state of the
+    launcher's full run: build_cell's train step (loss chunks of 512)
+    with the launcher's AdamW settings, which change no count (build_cell
+    takes the defaults, whose 100 warm-up steps move no bf16 norm scale
+    of 1.0 in 3 steps).  Finite losses and norms, every parameter moved,
+    max_memory_allocated under 80 GB and within TRAIN_PEAK_BAND of the
+    cell's argument bytes plus its walk's rematerialized peak."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.tokens import DataConfig, SyntheticCorpus
+    from repro_torch.training import AdamWConfig, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    cell = ShapeSpec("train_4k_chip", TRAIN_LONG_SEQ, 1, "train")
+    walk, arg_bytes = walk_train(cell, remat=True)
+    walk_off, _ = walk_train(cell, remat=False)
+    # launch.train's settings for a 4-step run: lr 3e-3, 5 warm-up steps
+    step = make_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=5), ce_chunk=512)
+    sums = [p.double().sum() for p in state.params.parameters()]
+    data = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_LONG_SEQ, global_batch=1,
+                                      seed=0))
+    batches = [torch.from_numpy(t).to(dev) for t in data.batches(steps=TRAIN_LONG_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    losses, norms, secs = [], [], []
+    for tokens in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens})
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = sum(bool(a != p.double().sum()) for a, p in zip(sums, state.params.parameters()))
+    predicted = arg_bytes + walk.peak_bytes
+    ratio = peak / predicted
+    del state
+    print(f"train: {TRAIN_ARCH} --preset full, build_cell's train step at train_4k's share "
+          f"of one chip (seq {TRAIN_LONG_SEQ}, batch 1, loss chunks of 512), on the "
+          f"launcher's state: {TRAIN_LONG_STEPS} steps, losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}, gradient norms "
+          f"{', '.join(f'{x:.3f}' for x in norms)}; seconds a step "
+          f"{', '.join(f'{x:.3f}' for x in secs)} (mean after the first "
+          f"{statistics.mean(secs[1:]):.3f}); {moved} of {n_tensors} parameters moved; "
+          f"max_memory_allocated {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above "
+          f"the {base / 1e9:.2f} GB held before), {ratio:.4f} of the counted "
+          f"{predicted / 1e9:.2f} GB (argument bytes {arg_bytes / 1e9:.2f} + the walk's "
+          f"rematerialized peak {walk.peak_bytes / 1e9:.2f}); the walk's peak without remat "
+          f"{walk_off.peak_bytes / 1e9:.2f} GB (a count: not run); walked FLOPs "
+          f"{walk.flops} with remat, {walk_off.flops} without "
+          f"({(walk.flops - walk_off.flops) / walk.flops:.4f} recomputed)", flush=True)
+    check(bool(np.all(np.isfinite(losses + norms))), f"train seq {TRAIN_LONG_SEQ}: a loss or "
+          f"norm is not finite ({losses}, {norms})")
+    check(moved == n_tensors, f"train seq {TRAIN_LONG_SEQ}: {moved} of {n_tensors} "
+          f"parameters moved")
+    check(peak < 80e9 and TRAIN_PEAK_BAND[0] <= ratio <= TRAIN_PEAK_BAND[1],
+          f"train seq {TRAIN_LONG_SEQ}: max_memory_allocated {peak}, {ratio:.4f} of the "
+          f"argument bytes and the walk's rematerialized peak {predicted}")
+
+
 def train_phase(dev) -> dict:
     """The training launcher (repro_torch.launch.train.run) on the card:
     stablelm-3b at --preset full (32 layers, d_model 2560, 2.8 B
     parameters in bf16, float32 AdamW moments) for TRAIN_STEPS sync steps
     at seq 256, global batch 8: every loss and gradient norm finite, every
     parameter moved, no flash launch (training takes the plain route),
-    seconds a step and peak memory, and AdamW's share of a step from
+    seconds a step and peak memory, then on the run's state
+    TRAIN_LONG_STEPS steps at train_4k's share of one chip (seq 4,096,
+    batch 1; :func:`train_long`), and AdamW's share of a step from
     adamw_update timed alone on the same weights; whisper-medium at
     --preset 100m for 2 steps; local SGD at --preset tiny over 2 replicas
     of 2 inner steps, the replicas equal after the sync; --preset 100m
@@ -3822,6 +3925,7 @@ def train_phase(dev) -> dict:
     n_tensors = len(list(DecoderLM(get_config(TRAIN_ARCH), device="meta").parameters()))
     check(rep["changed"] == n_tensors,
           f"train {TRAIN_ARCH}: {rep['changed']} of {n_tensors} parameters moved")
+    train_long(dev, rep.pop("state"), n_tensors)
     torch.cuda.empty_cache()
     # AdamW alone on the same weights, gradients drawn once
     cfg = get_config(TRAIN_ARCH)
@@ -3846,7 +3950,7 @@ def train_phase(dev) -> dict:
           f"step {', '.join(f'{x:.3f}' for x in rep['step_s'])} (median after the first "
           f"{step_s:.3f}); peak memory {rep['peak_mem'] / 1e9:.1f} GB; adamw_update alone "
           f"{opt_ms:.1f} ms ({opt_ms / 1e3 / step_s:.3f} of a step); all {n_tensors} "
-          f"parameters moved; no flash launch", flush=True)
+          f"parameters moved; no flash launch; every layer rematerialized", flush=True)
 
     rep = launched(["--arch", "whisper-medium", "--preset", "100m", "--steps", "2"] + TRAIN_ARGV)
     print(f"train: whisper-medium --preset 100m ({rep['params']} parameters, 6 encoder layers "
@@ -4046,6 +4150,8 @@ def dryrun_phase(dev, prefill_s: float, train: dict, child) -> None:
         torch.cuda.synchronize()
     check(card.flops == walk.flops, f"{TRAIN_ARCH} train step FLOPs: card {card.flops}, meta "
           f"{walk.flops}")
+    walk_off = walk_train(ShapeSpec("train", 256, 8, "train"), remat=False)[0]
+    recomputed = walk.flops - walk_off.flops
     del state, toks
     torch.cuda.empty_cache()
     tflops = walk.flops / train["step_s"] / 1e12
@@ -4057,7 +4163,9 @@ def dryrun_phase(dev, prefill_s: float, train: dict, child) -> None:
     rate = opt.bytes / (train["opt_ms"] / 1e3)
     print(f"dryrun: {TRAIN_ARCH} train step (seq 256, batch 8; the launcher's ce_chunk 128 "
           f"and build_cell's 512 both make one loss chunk of 255): FLOPs equal on meta and "
-          f"the card ({walk.flops}, {walk.flops / 1e12:.3f} TFLOP); at phase 23's "
+          f"the card ({walk.flops}, {walk.flops / 1e12:.3f} TFLOP, every layer "
+          f"rematerialized: {recomputed} of them, {recomputed / walk.flops:.4f}, run again "
+          f"in the backward, against a walk without remat); at phase 23's "
           f"{train['step_s']:.3f} s a step {tflops:.1f} TFLOP/s, mfu "
           f"{tflops * 1e12 / BF16_TC_FLOPS:.4f} of 989 TFLOP/s; adamw_update: "
           f"{opt.bytes / 1e9:.3f} GB counted (each op's inputs and outputs once) in phase "

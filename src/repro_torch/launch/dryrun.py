@@ -10,7 +10,11 @@ A cell is walked, not compiled: its step (``repro_torch.launch.specs``)
 runs once on ``torch.device("meta")`` under the counting mode
 (``repro_torch.utils.cost``), which gives its FLOPs, its bytes (each op's
 inputs read and outputs written once: eager's traffic) and the peak of the
-bytes its own tensors hold.  Nothing is allocated on any device.
+bytes its own tensors hold.  Nothing is allocated on any device.  A train
+cell's step rematerializes each layer body as the reference's does
+(``forward``'s ``remat=True``, ``models/remat.py``): its FLOPs and bytes
+count the ops run again in the backward, and its peak is the
+rematerialized one, as the reference's compiled counts are.
 
 Depth (the reference's two-point calibration, for the walk's time here:
 falcon-mamba-7b's scan is one op a token a layer, so a full-depth walk of
@@ -26,7 +30,9 @@ live, against its optimizer update, where the gradients of every layer
 are): :func:`extrapolate_peak` extrapolates the live bytes after every op
 of the first and the last body of each loop over the layers, and of what
 lies outside the loops, each of which grows linearly with depth, and
-takes their maximum.  ``tests/test_torch_dryrun.py`` holds all four to
+takes their maximum.  A body's input carries the body's label, so the ops
+that run a body again in the backward, which read it first, are that
+body's.  ``tests/test_torch_dryrun.py`` holds all four to
 full-depth walks.
 
 Per device: the walk is the whole (global) step, so FLOPs, bytes and the
@@ -56,6 +62,7 @@ import math
 import re
 import sys
 import time
+import weakref
 
 from repro_torch.configs import ARCH_IDS, SHAPES, cell_runnable, get_config
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
@@ -66,7 +73,7 @@ from repro_torch.launch.specs import (
     count_params,
     named_tensors,
 )
-from repro_torch.models import model
+from repro_torch.models import model, remat
 from repro_torch.sharding.rules import batch_axes, param_specs, rule_path
 from repro_torch.utils.cost import NONLOOP, CostMode
 from repro_torch.utils.roofline import (
@@ -118,7 +125,9 @@ def walk(cfg, shape) -> dict:
     """The cell's step walked once on meta under :class:`CostMode`: its
     ``flops``, ``bytes``, ``peak_bytes``, ``flash_ops``, ``walk_s`` and the
     mode's ``trace`` of live bytes by body.  The body labels are those of
-    the arguments and, in a train step, of each parameter's gradient (a
+    the arguments, of each body's input as the body starts (the
+    rematerialized body of a train step reads it first when it runs again
+    in the backward) and, in a train step, of each parameter's gradient (a
     hook on the parameter labels it when autograd makes it)."""
     step, args, _, _ = build_cell(cfg, shape, make_host_mesh())
     labels, hooks = {}, []
@@ -130,12 +139,21 @@ def walk(cfg, shape) -> dict:
         if t.requires_grad:
             hooks.append(t.register_hook(
                 lambda g, label=label: labels.__setitem__(g.untyped_storage()._cdata, label)))
+
+    def label_input(module, x):  # a body's input takes the body's label
+        key = x.untyped_storage()._cdata
+        label = next((labels[p.untyped_storage()._cdata] for p in module.parameters()
+                      if p.untyped_storage()._cdata in labels), None)
+        if label is not None and key not in labels:
+            labels[key] = label
+            weakref.finalize(x.untyped_storage(), labels.pop, key, None)
+
     # whisper's sinusoid tables are made by the first step of a process and
     # cached (models/model.py): every walk makes them, whatever ran before
     model._sinusoid.cache_clear()
     t0 = time.perf_counter()
     try:
-        with CostMode(labels=labels) as mode:
+        with CostMode(labels=labels) as mode, remat.on_body_entry(label_input):
             step(*args)
     finally:
         for h in hooks:

@@ -88,9 +88,11 @@ def run(argv=None) -> dict:
     nosync: the mean loss of each outer step, no norms), ``step_s`` (wall
     seconds of each step or outer step, the device synchronized),
     ``peak_mem`` (bytes the device allocated at most, None on the CPU),
-    ``saved`` (the checkpointed steps) and ``changed`` (sync: the
+    ``saved`` (the checkpointed steps), ``changed`` (sync: the
     parameters whose sum moved over the run's steps; nosync: whether every
-    replica's parameters are equal after the last sync)."""
+    replica's parameters are equal after the last sync) and ``state``
+    (sync: the train state after the last step, for a caller to go on
+    with; nosync: None)."""
     ap = argparse.ArgumentParser(prog="repro_torch.launch.train")
     ap.add_argument("--arch", choices=ARCH_IDS, default="stablelm-3b")
     ap.add_argument("--preset", choices=("tiny", "100m", "full"), default="tiny")
@@ -172,12 +174,13 @@ def run(argv=None) -> dict:
         first = dict(ls.params_r[0].named_parameters())
         changed = all(torch.equal(first[k], p) for rep in ls.params_r[1:]
                       for k, p in rep.named_parameters())
+        state = None
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     print("done", flush=True)
     return {"arch": cfg.name, "preset": args.preset, "device": str(dev),
             "dp_mode": args.dp_mode, "params": n_params, "start_step": start_step,
             "losses": losses, "grad_norms": norms, "step_s": step_s, "peak_mem": peak,
-            "saved": saved, "changed": changed}
+            "saved": saved, "changed": changed, "state": state}
 
 
 def main(argv=None) -> int:

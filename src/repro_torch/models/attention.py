@@ -23,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.common import RMSNorm, dense_init_, param, softcap
+from repro_torch.models.remat import dense
 from repro_torch.models.rope import apply_mrope, apply_rope
 
 
@@ -54,10 +55,11 @@ def gqa_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bhsk", x, w)`` as one matrix product."""
+    """``einsum("bsd,dhk->bhsk", x, w)`` as one matrix product, which a
+    checkpointed layer keeps (``remat.dense``: no batch dimension)."""
     b, s, d = x.shape
     _, h, dh = w.shape
-    return (x @ w.reshape(d, h * dh)).view(b, s, h, dh).transpose(1, 2)
+    return dense(x, w.reshape(d, h * dh)).view(b, s, h, dh).transpose(1, 2)
 
 
 def _rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor | None) -> torch.Tensor:
@@ -93,7 +95,7 @@ def gqa_apply(
     else:
         o = _plain_attention(q, k, v, scale, causal, window, cfg.attn_softcap)
     o = o.transpose(1, 2).reshape(b, s, h * dh)
-    return o @ params.wo
+    return dense(o, params.wo)
 
 
 CHUNK_Q_THRESHOLD = 4096  # q-chunk the score matrix at/above this seq len
@@ -261,14 +263,14 @@ def mla_apply(params: MLAttention, cfg: ModelConfig, x: torch.Tensor,
     m = cfg.mla
     b, s, _ = x.shape
     h, rope = cfg.n_heads, m.qk_rope_head_dim
-    q = _heads(params.q_norm(x @ params.wdq), params.wuq)  # (B,H,S,nope+rope)
+    q = _heads(params.q_norm(dense(x, params.wdq)), params.wuq)  # (B,H,S,nope+rope)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, rope], dim=-1)
     q = torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)], dim=-1)
-    ckv = params.kv_norm(x @ params.wdkv)
-    k_rope = apply_rope((x @ params.wkr)[:, None], positions, cfg.rope_theta)  # (B,1,S,rope)
+    ckv = params.kv_norm(dense(x, params.wdkv))
+    k_rope = apply_rope(dense(x, params.wkr)[:, None], positions, cfg.rope_theta)  # (B,1,S,rope)
     k = torch.cat([_heads(ckv, params.wuk), k_rope.expand(b, h, s, rope)], dim=-1)
     o = _plain_attention(q, k, _heads(ckv, params.wuv), _mla_scale(cfg), causal)
-    return o.transpose(1, 2).reshape(b, s, h * m.v_head_dim) @ params.wo
+    return dense(o.transpose(1, 2).reshape(b, s, h * m.v_head_dim), params.wo)
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
@@ -361,7 +363,7 @@ def cross_apply_cached(params: CrossAttention, cfg: ModelConfig, x: torch.Tensor
     b, s, _ = x.shape
     h, dh = cfg.n_heads, cfg.resolved_head_dim
     o = attention_ref(_heads(x, params.wq), k, v, scale=dh**-0.5, causal=False)
-    return o.transpose(1, 2).reshape(b, s, h * dh) @ params.wo
+    return dense(o.transpose(1, 2).reshape(b, s, h * dh), params.wo)
 
 
 def cross_apply(params: CrossAttention, cfg: ModelConfig, x: torch.Tensor,

@@ -5,7 +5,10 @@ through every expert, weighted by its gates) and sparse (each expert takes
 at most a capacity of token slots; the rest are dropped).
 
 The expert products are plain torch matrix products, as they are jnp
-einsums outside any Pallas kernel in the reference.
+einsums outside any Pallas kernel in the reference.  The products whose
+reference einsum has no batch dimension (the MLP's, the router's, the
+dense dispatch's ``wi`` and ``wg``) go through ``remat.dense``, which a
+checkpointed layer keeps for its backward.
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init_, param
+from repro_torch.models.common import dense_init_, param, records_grad
+from repro_torch.models.remat import dense
 
 
 class MLP(nn.Module):
@@ -48,12 +52,12 @@ def mlp_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
 def mlp_apply(params: MLP, x: torch.Tensor) -> torch.Tensor:
     """``silu(x·wg) · (x·wi) · wo`` (SwiGLU), else ``gelu(x·wi) · wo`` with
     the tanh approximation, which ``jax.nn.gelu`` takes by default."""
-    h = x @ params.wi
+    h = dense(x, params.wi)
     if params.cfg.mlp == "swiglu":
-        h = F.silu(x @ params.wg) * h
+        h = F.silu(dense(x, params.wg)) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ params.wo
+    return dense(h, params.wo)
 
 
 # ---------------------------------------------------------------------------
@@ -103,16 +107,23 @@ def moe_route(params: MoE, xf: torch.Tensor, top_k: int) -> tuple[torch.Tensor, 
     """Gates and experts ``(T, K)`` of the tokens ``xf (T, d)``: the softmax
     of ``x·router`` in float32, its top ``K`` (in descending order), the
     gates renormalised by ``max(sum, 1e-9)``."""
-    weights = torch.softmax(xf.float() @ params.router, dim=-1)
+    weights = torch.softmax(dense(xf.float(), params.router), dim=-1)
     topw, topi = torch.topk(weights, top_k, dim=-1)
     return topw / topw.sum(-1, keepdim=True).clamp_min(1e-9), topi
 
 
 def _experts(params: MoE, xe: torch.Tensor) -> torch.Tensor:
     """SwiGLU of every expert ``e`` on its rows ``xe[e]`` (``(E, n, d)``, or
-    ``(n, d)`` shared by all): ``(E, n, fe)``, before ``wo``."""
-    h = torch.matmul(xe, params.wi)
-    return h.mul_(F.silu(torch.matmul(xe, params.wg)))
+    ``(n, d)`` shared by all): ``(E, n, fe)``, before ``wo``.  The rows
+    shared by all are the dense dispatch's ``bsd,def->bsef`` in the
+    reference, products without a batch dimension (``remat.dense``); an
+    expert's own rows are the sparse dispatch's ``ecd,def->ecf``, batched
+    over the experts.  Out of place where autograd records (a kept product
+    must not change)."""
+    mm = dense if xe.dim() == 2 else torch.matmul
+    h = mm(xe, params.wi)
+    g = F.silu(mm(xe, params.wg))
+    return h * g if records_grad(h) else h.mul_(g)
 
 
 def moe_apply(params: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -127,7 +138,9 @@ def moe_apply(params: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     xf = x.reshape(b * s, d)
     topw, topi = moe_route(params, xf, m.top_k)
     gate = torch.zeros((b * s, m.n_experts), device=x.device).scatter_(1, topi, topw)
-    h = _experts(params, xf).mul_(gate.T.to(x.dtype)[:, :, None])  # (E, T, fe)
+    h = _experts(params, xf)  # (E, T, fe)
+    g = gate.T.to(x.dtype)[:, :, None]
+    h = h * g if records_grad(h) else h.mul_(g)
     out = torch.einsum("etf,efd->td", h, params.wo).reshape(b, s, d)
     if m.n_shared:
         out = out + mlp_apply(params.shared, x)

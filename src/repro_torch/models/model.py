@@ -8,17 +8,19 @@ Public API, as the reference's (over a :class:`DecoderLM` in place of a
 params pytree):
 
     init_params(cfg, generator, device)       → DecoderLM
-    forward(cfg, params, tokens, frames=…, moe_dispatch=…) → logits (B,S,Vpad) float32
+    forward(cfg, params, tokens, frames=…, moe_dispatch=…, remat=…) → logits (B,S,Vpad) float32
     init_cache(cfg, batch, max_len, device)   → cache
     init_cross_cache(cfg, params, enc_out)    → whisper's cross K/V, cache["cross"]
     decode_step(cfg, params, tokens, cache, enc_out=…) → (logits, cache)
 
 The layer stack is a Python loop over ``params.layers`` (the reference
-scans stacked params).  The hybrid is the reference's, not the published
-Zamba2: its ``n_groups · g`` SSM layers (``g = hybrid_attn_every``) are
-stored flat, where the reference stacks them ``(n_groups, g, …)``, and
-after each group of ``g`` one shared :class:`DecoderBlock` (``shared_attn``,
-the same weights every time) runs on the residual stream alone: no
+scans stacked params), each layer body rematerialized in training as the
+reference's (``models/remat.py``).  The hybrid is the reference's, not
+the published Zamba2: its ``n_groups · g`` SSM layers (``g =
+hybrid_attn_every``) are stored flat, where the reference stacks them
+``(n_groups, g, …)``, and after each group of ``g`` one shared
+:class:`DecoderBlock` (``shared_attn``, the same weights every time) runs
+on the residual stream alone: no
 concatenated embedding and no LoRA per application, RoPE over the
 prefill's positions, and in decode a KV cache of its own for each
 application.  whisper's audio frontend is a stub, as in the reference:
@@ -57,6 +59,7 @@ from repro_torch.models.blocks import (
 )
 from repro_torch.models.common import embed_init_, make_norm, pad_vocab, param, softcap
 from repro_torch.models.mlp import MLP, mlp_apply
+from repro_torch.models.remat import checkpoint_body, records
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -250,13 +253,20 @@ def encode(cfg: ModelConfig, params: DecoderLM, frames: torch.Tensor, *,
     """whisper's encoder, the reference's ``_encode``: the frames ``(B, T,
     d)`` in the model's dtype plus sinusoidal positions, then each layer
     ``x + attn(ln(x))`` (non-causal self-attention, no RoPE) and ``x +
-    mlp(ln(x))``, then ``enc_ln_f``."""
+    mlp(ln(x))``, then ``enc_ln_f``.  Each layer is rematerialized
+    wherever autograd records (``models/remat.py``), whatever ``forward``'s
+    ``remat`` says, as the reference's encoder always is."""
     x = frames.to(params.embed.dtype)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
-    for layer in params.enc_layers:
+
+    def layer_body(layer, x):
         x = x + gqa_apply(layer.attn, cfg, layer.ln_attn(x), None, causal=False,
                           use_kernel=use_kernel)
-        x = x + mlp_apply(layer.mlp, layer.ln_mlp(x))
+        return x + mlp_apply(layer.mlp, layer.ln_mlp(x))
+
+    on = records(params)
+    for layer in params.enc_layers:
+        x = checkpoint_body(layer_body, layer, x, remat=on)
     return params.enc_ln_f(x)
 
 
@@ -279,6 +289,7 @@ def forward(
     frames: torch.Tensor | None = None,  # (B, T, d_model): whisper's stubbed frontend
     moe_dispatch: str = "sparse",
     use_flash_kernel: bool = True,
+    remat: bool = True,
     features_only: bool = False,
 ) -> torch.Tensor:
     """Prefill logits ``(B, S, Vpad)`` float32; with ``features_only`` the
@@ -304,33 +315,55 @@ def forward(
     takes the plain route, as in the reference.  ``use_flash_kernel=False``
     asks for the plain attention route, for tests, comparisons and
     training (the kernel has no backward).  The SSM layers' scans are
-    plain torch (``models/ssm.py``), as the reference's are jnp."""
+    plain torch (``models/ssm.py``), as the reference's are jnp.
+
+    ``remat`` (True by default, as the reference's) rematerializes each
+    layer body where autograd records (grad mode on and a parameter
+    requiring grad): a decoder layer, an SSM layer, a hybrid's group of
+    ``hybrid_attn_every`` SSM layers and the shared block after them, a
+    whisper decoder layer.  Each keeps for its backward only its input and
+    the products the reference's ``dots_with_no_batch_dims_saveable``
+    keeps, and runs again in the backward (``models/remat.py``).  The
+    gradients are the same bit for bit; under ``torch.no_grad()`` the same
+    ops run either way.  whisper's encoder layers are rematerialized
+    wherever autograd records (:func:`encode`)."""
     if moe_dispatch not in ("sparse", "dense"):
         raise ValueError(f"moe_dispatch {moe_dispatch!r} is neither 'sparse' nor 'dense'")
     x = _embed(cfg, params, tokens)
+    on = remat and records(params)
     if _pure_ssm(cfg):
         for layer in params.layers:
-            x = ssm_block_apply(layer, cfg, x)
+            x = checkpoint_body(lambda lp, x: ssm_block_apply(lp, cfg, x), layer, x, remat=on)
     elif cfg.hybrid_attn_every:
         positions = _positions(cfg, tokens)
         g = cfg.hybrid_attn_every
-        for i, layer in enumerate(params.layers):
-            x = ssm_block_apply(layer, cfg, x)
-            if (i + 1) % g == 0:
-                x = decoder_block_apply(params.shared_attn, cfg, x, positions,
-                                        moe_dispatch=moe_dispatch, use_kernel=use_flash_kernel)
+
+        def group_body(group, x):
+            for layer in group:
+                x = ssm_block_apply(layer, cfg, x)
+            return decoder_block_apply(params.shared_attn, cfg, x, positions,
+                                       moe_dispatch=moe_dispatch, use_kernel=use_flash_kernel)
+
+        for i in range(0, len(params.layers), g):
+            x = checkpoint_body(group_body, params.layers[i:i + g], x, remat=on)
     elif cfg.encoder is not None:
         if frames is None:
             raise ValueError(f"{cfg.name} has an encoder: forward needs frames (B, T, d_model)")
         enc = encode(cfg, params, frames, use_kernel=use_flash_kernel)
         x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
         for layer in params.layers:
-            x = cross_block_apply(layer, cfg, x, enc, use_kernel=use_flash_kernel)
+            x = checkpoint_body(
+                lambda lp, x, enc: cross_block_apply(lp, cfg, x, enc, use_kernel=use_flash_kernel),
+                layer, x, enc, remat=on)
     else:
         positions = _positions(cfg, tokens)
+
+        def layer_body(layer, x, local):
+            return decoder_block_apply(layer, cfg, x, positions, is_local=local,
+                                       moe_dispatch=moe_dispatch, use_kernel=use_flash_kernel)
+
         for layer, local in zip(params.layers, _local_pattern(cfg)):
-            x = decoder_block_apply(layer, cfg, x, positions, is_local=local,
-                                    moe_dispatch=moe_dispatch, use_kernel=use_flash_kernel)
+            x = checkpoint_body(layer_body, layer, x, local, remat=on)
     x = params.ln_f(x)
     return x if features_only else unembed(cfg, params, x)
 

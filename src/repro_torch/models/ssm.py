@@ -51,6 +51,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init_, param, records_grad
+from repro_torch.models.remat import dense
 
 STATE_CHUNK_BYTES = 256 * 2**20  # float32 state of one Mamba-1 prefill chunk
 SSD_CHUNK = 64  # time steps of one Mamba-2 SSD chunk
@@ -163,15 +164,15 @@ def mamba1_apply(params: Mamba1, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
     (:func:`mamba1_scan`), ``+ D·x``, the ``silu(z)`` gate, out_proj."""
     st = cfg.ssm.state
     di, r = cfg.ssm.expand * cfg.d_model, dt_rank(cfg)
-    xi, z = (x @ params.in_proj).split(di, dim=-1)
+    xi, z = dense(x, params.in_proj).split(di, dim=-1)
     xi = F.silu(causal_conv(xi, params.conv_w, params.conv_b))
-    dt_in, B, C = (xi @ params.x_proj).split([r, st, st], dim=-1)
-    dt = F.softplus(dt_in @ params.dt_proj + params.dt_bias)  # (B,S,di) in x's dtype
+    dt_in, B, C = dense(xi, params.x_proj).split([r, st, st], dim=-1)
+    dt = F.softplus(dense(dt_in, params.dt_proj) + params.dt_bias)  # (B,S,di) in x's dtype
     A = -torch.exp(params.A_log)
     xf = xi.float()
     y = mamba1_scan(dt.float(), A, B.float(), C.float(), xf)
     y = y + params.D * xf
-    return (y.to(x.dtype) * F.silu(z)) @ params.out_proj
+    return dense(y.to(x.dtype) * F.silu(z), params.out_proj)
 
 
 def mamba1_init_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
@@ -303,7 +304,7 @@ def mamba2_apply(params: Mamba2, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
     b, s, _ = x.shape
     di, hd, st = s_cfg.expand * cfg.d_model, s_cfg.headdim, s_cfg.state
     nh = di // hd
-    z, xBC, dt_in = (x @ params.in_proj).split([di, di + 2 * st, nh], dim=-1)
+    z, xBC, dt_in = dense(x, params.in_proj).split([di, di + 2 * st, nh], dim=-1)
     xBC = F.silu(causal_conv(xBC, params.conv_w, params.conv_b))
     xi, B, C = xBC.split([di, st, st], dim=-1)
     dt = F.softplus(dt_in.float() + params.dt_bias)  # (B,S,nh) float32
@@ -311,7 +312,7 @@ def mamba2_apply(params: Mamba2, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
     xh = xi.reshape(b, s, nh, hd).float()
     y = mamba2_scan(dt, A, B.float(), C.float(), xh)
     y = (y + params.D[:, None] * xh).reshape(b, s, di).to(x.dtype)
-    return _gated_rmsnorm(y, z, params.norm_scale) @ params.out_proj
+    return dense(_gated_rmsnorm(y, z, params.norm_scale), params.out_proj)
 
 
 def mamba2_init_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:

@@ -7,8 +7,12 @@ on; inference models keep it off), the loss runs the plain attention
 route (the flash kernel has no backward; the reference's ``loss_fn``
 runs its jnp attention too), ``torch.autograd`` gives the gradients and
 :func:`~repro_torch.training.optimizer.adamw_update` writes the new
-values.  Left out of the port, as nothing in it reaches them: the
-unchunked ``cross_entropy``, ``remat`` and ``layer_unroll``.
+values.  :func:`loss_fn` calls ``forward`` with its default
+``remat=True``, as the reference's does: every layer body is
+rematerialized (``models/remat.py``), keeping only its input and the
+products the reference's ``dots_with_no_batch_dims_saveable`` keeps.
+Left out of the port, as nothing in it reaches them: the unchunked
+``cross_entropy`` and ``layer_unroll``.
 """
 from __future__ import annotations
 

@@ -1357,6 +1357,34 @@ def test_train_step_on_card_matches_cpu(cuda):
         1e-4 * abs(float(want["grad_norm"]))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_gradients_equal_on_card(cuda, dtype):
+    """stablelm-3b reduced, b 2, s 65, on the card: the loss and every
+    gradient with ``forward``'s ``remat=True`` (as ``loss_fn`` runs it)
+    equal those with ``remat=False`` bit for bit.  The recompute runs the
+    same kernels on the same inputs as the forward, and a kept product is
+    the forward's own tensor, so nothing may differ."""
+    from repro_torch.training import init_train_state
+    from repro_torch.training.train_step import fused_chunked_ce
+
+    cfg = dataclasses.replace(get_config("stablelm-3b").reduced(), dtype=dtype)
+    state = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=torch.Generator().manual_seed(5))
+    toks = toks.to(cuda)
+    named = dict(state.params.named_parameters())
+    runs = []
+    for remat in (True, False):
+        feats = forward(cfg, state.params, toks, use_flash_kernel=False, features_only=True,
+                        remat=remat)
+        loss = fused_chunked_ce(cfg, state.params, feats[:, :-1], toks[:, 1:], 16)
+        grads = torch.autograd.grad(loss, list(named.values()))
+        runs.append((loss.detach(), grads))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    for name, a, b in zip(named, runs[0][1], runs[1][1]):
+        assert torch.equal(a, b), name
+
+
 # the prefill shapes of PERF.md's flash table (chip_smoke.FLASH_TIMED):
 # (b, hq, hkv, s, dh, window, causal)
 FLASH_COUNTED = [

@@ -101,7 +101,7 @@ def test_the_audit_covers_the_analysis_modules(module):
     "training/__init__.py", "training/optimizer.py", "training/train_step.py",
     "training/local_sgd.py", "data/__init__.py", "data/tokens.py",
     "checkpoint/__init__.py", "checkpoint/ckpt.py", "launch/train.py",
-    "configs/whisper_medium.py"])
+    "configs/whisper_medium.py", "models/remat.py"])
 def test_the_audit_covers_the_training_and_whisper_modules(module):
     assert ROOT / "src" / "repro_torch" / module in FILES
 

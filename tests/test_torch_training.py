@@ -424,6 +424,9 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path):
                          .params.parameters()))
     assert first["changed"] == n_tensors  # every parameter moved
     saved, _ = restore_arrays(str(tmp_path))
+    # the run hands back the state it trained, the one it saved last
+    for name, p in first["state"].params.named_parameters():
+        assert torch.equal(p.detach(), saved[f"params/{name}"]), name
     again = train.run(args + ["--steps", "1"])
     assert again["start_step"] == 3 and again["saved"] == [4]
     assert int(saved["opt/step"]) == 3 and np.isfinite(again["losses"][0])
@@ -434,6 +437,7 @@ def test_launcher_nosync_runs_an_outer_step():
                      "--global-batch", "2", "--dp-mode", "nosync", "--replicas", "2",
                      "--inner-steps", "1", "--steps", "1"])
     assert rep["dp_mode"] == "nosync" and len(rep["losses"]) == 1 and rep["changed"] is True
+    assert rep["state"] is None
     assert np.isfinite(rep["losses"][0])
 
 

@@ -311,6 +311,7 @@ if os.path.isdir(os.path.join(SRC, "repro_torch")):  # else main() stops first
     # the H100's peaks (NVIDIA data sheet) and the bounds set beside every kernel
     from repro_torch.utils.roofline import (
         BF16_TC_FLOPS,
+        FP32_FLOPS,
         HBM_BYTES_PER_S,
         attention_pairs,
         bound_ms,
@@ -2765,10 +2766,11 @@ def flash_design(bf16: bool, lib=None) -> str:
     built library (``lib``, else the port's) reports it."""
     from repro_torch.kernels.flash_attention import build
 
+    info = build.kernel_info(128, bf16, lib)
     if bf16:
-        terms = build.kernel_info(128, True, lib)["p_terms"]
-        return f"bf16: wgmma on the tensor cores, P as {terms} bf16 terms"
-    return "f32: FMAs on the CUDA cores"
+        return f"bf16: wgmma on the tensor cores, P as {info['p_terms']} bf16 terms"
+    return (f"f32: wgmma on the tensor cores, q, k, v and P as {info['terms']} bf16 terms, "
+            f"Q·Kᵀ as {info['qk_products']} term products and P·V as {info['pv_products']}")
 
 
 def plain_attention(q, k, v, causal, window):
@@ -2969,12 +2971,16 @@ def flash_kernel_phase(dev):
                        f"the kernel {lib_err:.3e})")
                 del mask
                 st["bound_ms"], st["bound_by"], flops, nbytes = flash_bound(q, k, causal, window)
-                # the kernel's own tensor-core work: Q·Kᵀ once, P·V once per
-                # P term, over the tile's width (128 columns at dh 80)
-                terms = build.kernel_info(dh, True)["p_terms"]
+                # the kernel's own tensor-core work: its term products of
+                # Q·Kᵀ, and of P·V over the tile's width (128 columns at dh 80)
+                info = build.kernel_info(dh, bf16)
                 width = -(-dh // 64) * 64 if dh > 64 else dh
-                floor_ms = flops * (1 + terms * width / dh) / 2 / BF16_TC_FLOPS * 1e3
-                floor = f", its own tensor-core floor {floor_ms:.4f} ms" if bf16 else ""
+                st["floor_ms"] = (flops * (info["qk_products"] + info["pv_products"] * width / dh)
+                                  / 2 / BF16_TC_FLOPS * 1e3)
+                floor = f", its own tensor-core floor {st['floor_ms']:.4f} ms"
+                if not bf16:  # the bound of float32 FMAs on the CUDA cores
+                    st["fma_ms"] = flops / FP32_FLOPS * 1e3
+                    floor += f", float32 FMAs {st['fma_ms']:.4f} ms"
                 live = attention_pairs(s, s, causal, window)
                 pairs = f"{live} live (q, k) pairs a head{'' if causal else ' (no causal mask)'}"
                 if window is not None:
@@ -4373,6 +4379,11 @@ def main() -> int:
         # whisper-medium's encoder, not causal
         "whisper-medium encoder shape": shape_entry(
             flash[("whisper-medium", torch.bfloat16, None)]),
+        # the float32 kernel at every timed shape (the float32 checks of
+        # the LM phases run it)
+        "float32": {f"{name} shape{'' if window is None else f' window {window}'}":
+                    shape_entry(st) for (name, dtype, window), st in flash.items()
+                    if dtype == torch.float32},
     })
     check(all(k["launches"] > 0 and all(n > 0 for n in k.get("launches_by_path", {}).values())
               for k in kernels), "a kernel never launched on a main path")

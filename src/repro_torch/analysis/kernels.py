@@ -16,9 +16,9 @@ structs in the CUDA sources, so this pass keeps a Python mirror of each:
   (:class:`GsLayout`, :func:`gs_pass_plan`);
 * ``gs_pass_multi``: ``MultiLayout`` of a CTA owning ``part`` vertices of
   each block, at its most without a cluster (:func:`multi_smem_bytes`);
-* ``flash_attention``: the float32 kernel's ``smem_floats<D>()`` and the
-  bf16 kernel's ``tc::Geo<D>::SMEM`` for each head dim of ``HEAD_DIMS``
-  (:func:`flash_smem_bytes`).
+* ``flash_attention``: the bf16 kernel's ``tc::Geo<D>::SMEM`` and the
+  float32 kernel's ``tc::Geo32<D>::SMEM`` for each head dim of
+  ``HEAD_DIMS`` (:func:`flash_smem_bytes`).
 
 From the mirror the pass computes the largest ``block`` that ``gs_pass``
 (unweighted and weighted) and ``gs_pass_multi`` take — the counterparts of
@@ -71,9 +71,9 @@ MAX_STAGES = 4  # kMaxStages: D
 # csrc/flash_attention.cu
 FLASH_BQ = 64
 FLASH_BK = 64
-FLASH_QS = FLASH_BQ + 4
-FLASH_KS = FLASH_BK + 4
 TC_STAGES = 2
+F32_TERMS = 3  # tc::F32_TERMS: bf16 terms (tiles) of each q, K and V tile
+F32_WGS = 2  # tc::F32_WGS: consumer warpgroups, each with its q tile
 
 
 def round16(nbytes: int) -> int:
@@ -173,18 +173,22 @@ def multi_smem_bytes(block: int, cluster: int = 1) -> int:
 
 
 def flash_smem_bytes(dh: int, bf16: bool) -> int:
-    """Dynamic shared memory of the flash kernel launched for ``dh``: the
-    bf16 kernel's ``tc::Geo<D>::SMEM`` (1,024 B of swizzle alignment, the q
-    tile, the K and V rings, the mbarriers; a tile ``Geo<D>::DT`` columns
-    wide, dh rounded up to whole TMA boxes: 128 at dh 80), the float32
-    kernel's ``smem_floats<D>()`` (the q and k tiles transposed, the p
-    tile)."""
+    """Dynamic shared memory of the flash kernel launched for ``dh``, its
+    bf16 tiles ``Geo<D>::DT`` columns wide (dh rounded up to whole TMA
+    boxes: 128 at dh 80): the bf16 kernel's ``tc::Geo<D>::SMEM`` (1,024 B
+    of swizzle alignment, the q tile, the K and V rings, the mbarriers);
+    the float32 kernel's ``tc::Geo32<D>::SMEM`` (the same alignment, a q
+    tile of each term for each warpgroup, K and V slots of every term, two
+    each where a tile is at most 64 columns wide and one at 128, the
+    mbarriers)."""
+    box = min(dh, 64)  # Geo<D>::SW_COLS
+    dt = -(-dh // box) * box
     if bf16:
-        box = min(dh, 64)  # Geo<D>::SW_COLS
-        dt = -(-dh // box) * box
         barriers = 1 + 4 * TC_STAGES
         return 1024 + FLASH_BQ * dt * 2 + 2 * TC_STAGES * FLASH_BK * dt * 2 + 8 * barriers
-    return 4 * (dh * FLASH_QS + dh * FLASH_KS + FLASH_BK * FLASH_QS)
+    stages = 2 if dt <= 64 else 1  # Geo32<D>::STAGES
+    return (1024 + F32_WGS * F32_TERMS * FLASH_BQ * dt * 2
+            + 2 * stages * F32_TERMS * FLASH_BK * dt * 2 + 8 * (1 + 4 * stages))
 
 
 def largest_block(fits) -> int:

@@ -5,8 +5,8 @@
 // (b, hq, q block, k block) grid in order on one core and carries the
 // running max, denominator and accumulator of one q block in VMEM scratch
 // across its k sweep.  Here the k sweep is a loop inside one CTA: a CTA
-// owns one (batch, q head, 64-row q tile) and keeps that state in
-// registers, so no CTA depends on another.
+// owns one (batch, q head, q tile) and keeps that state in registers, so no
+// CTA depends on another.
 //
 // What it computes, as the TPU kernel does:
 //   * GQA: q head ih reads kv head ih / (hq / hkv);
@@ -24,10 +24,11 @@
 //
 // Bound: operations.  Causal prefill does 4 * dh flops per live (q, k)
 // pair and reads each operand once, hundreds of flops per byte.  Two
-// kernels, one per input type, behind one entry point:
+// kernels, one per input type, behind one entry point, both on the tensor
+// cores (989 TFLOP/s dense bf16):
 //
-// bfloat16 (tc::): the tensor cores (989 TFLOP/s dense bf16).  A CTA is one
-// consumer warpgroup and one producer warp.  The producer's one thread loads
+// bfloat16 (tc::flash_attention_tc_kernel).  A CTA is one consumer
+// warpgroup and one producer warp.  The producer's one thread loads
 // the q tile and a ring of STAGES K and V tiles by TMA, swizzled 128B (64B
 // at dh 32), a tile row cut into 64-column boxes; mbarriers carry "landed"
 // and "consumed" between the roles.  dh 80 is not a whole number of boxes:
@@ -48,16 +49,27 @@
 // columns at a time (fewer live registers, two CTAs an SM).  No load waits
 // for compute: the ring keeps the next tile in flight.
 //
-// float32 (the first kernel of this file): FMAs on the CUDA cores
-// (67 TFLOP/s peak), where float32 inputs keep float32 products.  128
-// threads as 16 row groups x 8 column lanes; a thread holds 4 query rows
-// x 8 scores of the 64-key tile and 4 rows x dh/8 output columns, and sums
-// each tile's P.V apart before it meets the running accumulator.  q and k
-// tiles sit transposed in shared memory (one 16-byte q load feeds 4 rows;
-// 8 lanes read 8 consecutive keys), the row max and sum go over the 8 lanes
-// by shuffles, and P goes through shared memory to the P.V product.  The k
-// and v tiles share one buffer, so a CTA takes 87 KB at dh = 128 and two
-// CTAs fit on an SM.
+// float32 (tc::flash_attention_f32_kernel).  A float32 value is exactly the
+// sum of F32_TERMS = 3 bf16 terms, each the rounding of what the earlier
+// ones leave, and a product of two bf16 terms is exact in wgmma's float32
+// accumulator.  A first small kernel (split_terms_kernel) writes q, k and v
+// as three bf16 planes each into scratch that the wrapper allocates (10
+// bytes moved an element); tensor maps read the planes as the bf16 kernel
+// reads its operands, and P is split in registers as the bf16 kernel splits
+// it.  Of the 9 term products of Q.K^T, and of P.V, it keeps the 6 with
+// i + j <= 2, smallest first: 12 bf16 products where the function needs 2.
+// So the least time for float32-accurate work on this card is the
+// function's flops x 6 over 989 TFLOP/s (the CUDA cores' float32 FMAs: 67).
+// Three terms of a 64-row, 128-column tile take 48 KB, and Q beside a
+// two-stage ring of K and V would pass the 227 KB a CTA may have.  So a CTA
+// is two consumer warpgroups (128 query rows, 96 KB of Q's terms) over one
+// K and one V slot (two each where the tile is at most 64 columns wide) and
+// a producer warp, one CTA an SM.  The warpgroups share each K and V tile
+// and the tensor cores, so one's softmax runs under the other's products;
+// the producer refills a slot once both have read it, K's after Q.K^T and
+// V's after P.V, under the other half of the tile's work.  A warpgroup
+// skips a tile that none of its rows sees.  dh 80 keeps the bf16 kernel's
+// 128-column tile.
 
 #include <cuda.h>  // CUtensorMap and its enums (header only: no -lcuda)
 #include <cuda_bf16.h>
@@ -67,198 +79,7 @@
 
 namespace {
 
-constexpr int BQ = 64;                // query rows of a CTA
-constexpr int BK = 64;                // keys of a tile
-constexpr int THREADS = 128;
-constexpr int LANES = 8;              // threads that share a row group
-constexpr int ROWS = BQ / (THREADS / LANES);  // query rows of a thread: 4
-constexpr int SCOLS = BK / LANES;     // scores of a thread per row: 8
-constexpr int QS = BQ + 4;            // row stride of the transposed q and p tiles
-constexpr int KS = BK + 4;            // row stride of the transposed k tile
 constexpr float NEG_INF = -1e30f;
-
-static_assert(ROWS == 4, "a thread's rows are read as one float4");
-static_assert(ROWS * SCOLS <= 32, "the live mask is one 32-bit word");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store_rounded(float* p, float x) { *p = x; }
-
-// q tile [D][QS] + k or v tile [D][KS] (the v tile [BK][D] is smaller) +
-// p tile [BK][QS], in floats
-template <int D>
-constexpr size_t smem_floats() {
-  return (size_t)D * QS + (size_t)D * KS + (size_t)BK * QS;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int hq,
-                       int hkv, int sq, int sk, float scale, int causal,
-                       int window) {
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;          // qt[d * QS + r]: row r of the q tile, transposed
-  float* kv = qt + D * QS;   // kv[d * KS + c] (k, transposed), then kv[c * D + d] (v)
-  float* pt = kv + D * KS;   // pt[c * QS + r]: probabilities, transposed
-  constexpr int COLS = D / LANES;  // output columns of a thread
-
-  const int ih = blockIdx.x;
-  const int ib = blockIdx.y;
-  const int iq = gridDim.z - 1 - blockIdx.z;  // longest causal rows first
-  const int ikv = ih / (hq / hkv);
-  const int q_start = iq * BQ;
-  const int q_last = min(q_start + BQ, sq) - 1;
-  const size_t q_off = ((size_t)ib * hq + ih) * sq * D;
-  const size_t kv_off = ((size_t)ib * hkv + ikv) * sk * D;
-  const T* qb = q + q_off;
-  const T* kb = k + kv_off;
-  const T* vb = v + kv_off;
-  T* ob = o + q_off;
-
-  const int tid = threadIdx.x;
-  const int ty = tid / LANES;  // rows ty * ROWS .. ty * ROWS + 3 of the tile
-  const int tx = tid % LANES;  // key / output columns tx, tx + LANES, ...
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    qt[d * QS + r] = q_start + r < sq ? to_f32(qb[(size_t)(q_start + r) * D + d]) : 0.f;
-  }
-
-  float m[ROWS], l[ROWS], acc[ROWS][COLS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) acc[i][j] = 0.f;
-  }
-
-  // keys that some row of the tile may see: [k_lo, k_hi)
-  const int k_hi = causal ? min(sk, q_last + 1) : sk;
-  const int k_lo = window > 0 ? max(0, q_start - window + 1) : 0;
-  for (int k_start = k_lo / BK * BK; k_start < k_hi; k_start += BK) {
-    __syncthreads();  // the previous tile's v and p are consumed
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int c = i / D, d = i % D;
-      kv[d * KS + c] = k_start + c < sk ? to_f32(kb[(size_t)(k_start + c) * D + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[ROWS][SCOLS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(qt + d * QS + ty * ROWS);
-      const float qr[ROWS] = {qa.x, qa.y, qa.z, qa.w};
-      float kc[SCOLS];
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) kc[j] = kv[d * KS + tx + j * LANES];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < SCOLS; ++j) s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
-    }
-
-    // online softmax over the tile: a row's 64 scores lie on 8 lanes
-    float alpha[ROWS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int row = q_start + ty * ROWS + i;
-      unsigned live = 0;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) {
-        const int col = k_start + tx + j * LANES;
-        const bool ok = col < sk && (!causal || row >= col) &&
-                        (window <= 0 || row - col < window);
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
-        live |= (ok ? 1u : 0u) << j;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < LANES; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) {
-        s[i][j] = (live >> j) & 1u ? expf(s[i][j] - m_new) : 0.f;
-        sum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 1; off < LANES; off <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      alpha[i] = expf(m[i] - m_new);
-      l[i] = alpha[i] * l[i] + sum;
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < SCOLS; ++j)
-      *reinterpret_cast<float4*>(pt + (tx + j * LANES) * QS + ty * ROWS) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();  // the k tile is consumed and p is written
-
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int c = i / D, d = i % D;
-      kv[c * D + d] = k_start + c < sk ? to_f32(vb[(size_t)(k_start + c) * D + d]) : 0.f;
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p.v, the tile's product summed apart first (as
-    // the TPU kernel's dot): a running sum over all sk keys would lose
-    // float32 digits as it grows
-    float pv[ROWS][COLS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) pv[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float4 pa = *reinterpret_cast<const float4*>(pt + c * QS + ty * ROWS);
-      const float pr[ROWS] = {pa.x, pa.y, pa.z, pa.w};
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const float vv = kv[c * D + tx + j * LANES];
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) pv[i][j] = fmaf(pr[i], vv, pv[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) acc[i][j] = fmaf(acc[i][j], alpha[i], pv[i][j]);
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int row = q_start + ty * ROWS + i;
-    if (row >= sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < COLS; ++j)
-      store_rounded(ob + (size_t)row * D + tx + j * LANES, acc[i][j] / denom);
-  }
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int hq,
-           int hkv, int sq, int sk, float scale, int causal, int window,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(hq, b, (sq + BQ - 1) / BQ);
-  flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, sq, sk, scale,
-      causal, window);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma on the tensor cores, K and V fed by TMA through a ring
@@ -722,13 +543,367 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32: the same tensor cores, on exact bf16 terms of q, k, v and P
+// ---------------------------------------------------------------------------
+
+// q, k, v and P are each summed as F32_TERMS bf16 terms, each the rounding of
+// what the earlier ones leave: three carry all 24 bits of a float32 value.  Of
+// the 9 term products of Q.K^T (and of P.V) the kernel keeps the PAIRS with
+// i + j < F32_TERMS, smallest first; the other three lie at or below float32's
+// last bit.  The CPU emulation in tests/test_torch_flash_attention.py holds the
+// sum to the float32 bound, and each product that it drops breaks the bound.
+constexpr int F32_TERMS = 3;
+constexpr int PAIRS = 6;
+constexpr int QK_PRODUCTS = 6;  // Q.K^T keeps the last QK_PRODUCTS of PAIRS
+constexpr int PV_PRODUCTS = 6;  // P.V keeps the last PV_PRODUCTS of PAIRS
+constexpr int F32_WGS = 2;      // consumer warpgroups of a CTA, 64 query rows each
+constexpr int F32_THREADS = F32_WGS * CONSUMERS + 32;  // and a producer warp
+
+// Pair p's term of the left operand (q or P) and of the right one (k or v),
+// smallest products first: (0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0).
+__host__ __device__ constexpr int left_term(int p) { return p < 3 ? p : p < 5 ? p - 3 : 0; }
+__host__ __device__ constexpr int right_term(int p) { return p < 3 ? 2 - p : p < 5 ? 4 - p : 0; }
+
+// Shared memory of the float32 kernel at head dim D: a warpgroup's q tile and
+// each K or V slot hold F32_TERMS tiles of Geo<D>, one a term.  At DT = 128
+// a slot is 48 KB, so K and V keep one slot each (two would pass 227 KB
+// beside 96 KB of Q); narrower tiles keep two.
+template <int D>
+struct Geo32 {
+  using G = Geo<D>;
+  static constexpr int STAGES = G::DT <= 64 ? 2 : 1;
+  static constexpr int Q_BYTES = F32_TERMS * G::Q_BYTES;
+  static constexpr int KV_BYTES = F32_TERMS * G::KV_BYTES;
+  static constexpr int BARRIERS = 1 + 4 * STAGES;
+  static constexpr int SMEM = 1024 + F32_WGS * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
+  static_assert(SMEM <= 232448, "a CTA may have 227 KB of shared memory");
+};
+
+// q, k and v (pairs of float32 values; blockIdx.y picks the tensor) into
+// F32_TERMS bf16 planes each, one after the other in `out`: plane t of a
+// tensor holds the rounding of what planes 0 .. t-1 leave (each subtraction
+// is exact).
+__global__ void __launch_bounds__(256)
+split_terms_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, __nv_bfloat162* __restrict__ out, size_t q_pairs,
+                   size_t kv_pairs) {
+  const int y = blockIdx.y;
+  const float* x = y == 0 ? q : y == 1 ? k : v;
+  const size_t n = y == 0 ? q_pairs : kv_pairs;
+  __nv_bfloat162* planes = out + (y == 0 ? 0 : F32_TERMS * (q_pairs + (y - 1) * kv_pairs));
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float a = x[2 * i], b = x[2 * i + 1];
+#pragma unroll
+    for (int t = 0; t < F32_TERMS; ++t) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      planes[t * n + i] = h;
+      a -= __low2float(h);
+      b -= __high2float(h);
+    }
+  }
+}
+
+// Grid (hq, b, 128-row q tiles); 288 threads.  Warp 8 (one thread) loads both
+// warpgroups' q tiles once and each K and V tile of the CTA's key range, all
+// F32_TERMS planes of it, into its slot once both warpgroups are done with
+// the slot's last tile.  Warpgroup w (warps 4w .. 4w + 3) owns query rows
+// q_start + 64w .. + 63 and the wgmma accumulator layout of the bf16 kernel:
+// thread t holds rows r0 = 16 * (t / 32) + (t % 32) / 4 and r0 + 8, and of
+// each 8-column group the columns c0 = 2 * (t % 4) and c0 + 1.
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+flash_attention_f32_kernel(__grid_constant__ const CUtensorMap tq,
+                           __grid_constant__ const CUtensorMap tk,
+                           __grid_constant__ const CUtensorMap tv, float* __restrict__ o, int b,
+                           int hq, int hkv, int sq, int sk, float scale, int causal, int window) {
+  using G = Geo<D>;
+  using F = Geo32<D>;
+  constexpr int ROWS = F32_WGS * BQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* ks = qs + F32_WGS * F::Q_BYTES;  // F::STAGES K slots
+  uint8_t* vs = ks + F::STAGES * F::KV_BYTES;  // F::STAGES V slots
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + F::STAGES * F::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + F::STAGES;
+  uint64_t* k_empty = v_full + F::STAGES;
+  uint64_t* v_empty = k_empty + F::STAGES;
+
+  const int ih = blockIdx.x;
+  const int ib = blockIdx.y;
+  const int iq = gridDim.z - 1 - blockIdx.z;  // longest causal rows first
+  const int q_start = iq * ROWS;
+  const int q_last = min(q_start + ROWS, sq) - 1;
+  const int q_wgs = (q_last - q_start) / BQ + 1;  // warpgroups with a row below sq
+  // keys that some row of the CTA may see: [k_lo, k_hi), in tiles from k_first
+  const int k_hi = causal ? min(sk, q_last + 1) : sk;
+  const int k_lo = window > 0 ? max(0, q_start - window + 1) : 0;
+  const int k_first = k_lo / BK * BK;
+  const int n_tiles = k_hi > k_first ? (k_hi - k_first + BK - 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < F::STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, F32_WGS * CONSUMERS);
+      mbar_init(v_empty + s, F32_WGS * CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= F32_WGS * CONSUMERS) {  // the producer warp; one thread starts the copies
+    if (threadIdx.x == F32_WGS * CONSUMERS) {
+      // term t of a head lies t planes (b * heads heads each) after term 0
+      const int q_head = ib * hq + ih;
+      const int kv_head = ib * hkv + ih / (hq / hkv);
+      mbar_expect_tx(q_full, q_wgs * F::Q_BYTES);
+      for (int w = 0; w < q_wgs; ++w)
+        for (int t = 0; t < F32_TERMS; ++t)
+          for (int c = 0; c < G::CHUNKS; ++c)
+            tma_load(qs + w * F::Q_BYTES + t * G::Q_BYTES + c * G::Q_CHUNK, &tq, c * G::SW_COLS,
+                     q_start + w * BQ, t * b * hq + q_head, q_full);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % F::STAGES;
+        const uint32_t parity = (i / F::STAGES) & 1;
+        const int k_start = k_first + i * BK;
+        mbar_wait(k_empty + s, parity ^ 1);
+        mbar_expect_tx(k_full + s, F::KV_BYTES);
+        for (int t = 0; t < F32_TERMS; ++t)
+          for (int c = 0; c < G::CHUNKS; ++c)
+            tma_load(ks + s * F::KV_BYTES + t * G::KV_BYTES + c * G::KV_CHUNK, &tk,
+                     c * G::SW_COLS, k_start, t * b * hkv + kv_head, k_full + s);
+        mbar_wait(v_empty + s, parity ^ 1);
+        mbar_expect_tx(v_full + s, F::KV_BYTES);
+        for (int t = 0; t < F32_TERMS; ++t)
+          for (int c = 0; c < G::CHUNKS; ++c)
+            tma_load(vs + s * F::KV_BYTES + t * G::KV_BYTES + c * G::KV_CHUNK, &tv,
+                     c * G::SW_COLS, k_start, t * b * hkv + kv_head, v_full + s);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / CONSUMERS;
+  const int tid = threadIdx.x % CONSUMERS;
+  const int r0 = 16 * (tid / 32) + (tid % 32) / 4;
+  const int c0 = 2 * (tid % 4);
+  const int q0 = q_start + wg * BQ;  // this warpgroup's first query row
+  // keys its rows may see: [my_lo, my_hi), none when its rows all lie past sq
+  const int my_hi = q0 >= sq ? 0 : causal ? min(sk, min(q0 + BQ, sq)) : sk;
+  const int my_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const uint32_t q_addr = smem_u32(qs + wg * F::Q_BYTES);
+  const uint32_t k_addr = smem_u32(ks);
+  const uint32_t v_addr = smem_u32(vs);
+
+  // acc[4i + 2h + c]: row r0 + 8h, output column 8i + c0 + c (of DT; those
+  // from D on stay 0)
+  float acc[G::DT / 2];
+#pragma unroll
+  for (int i = 0; i < G::DT / 2; ++i) acc[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+  if (wg < q_wgs) mbar_wait(q_full, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % F::STAGES;
+    const uint32_t parity = (i / F::STAGES) & 1;
+    const int k_start = k_first + i * BK;
+    if (k_start >= my_hi || k_start + BK <= my_lo) {
+      // no row of this warpgroup sees the tile: release the slots in turn
+      mbar_wait(k_full + s, parity);
+      mbar_arrive(k_empty + s);
+      mbar_wait(v_full + s, parity);
+      mbar_arrive(v_empty + s);
+      continue;
+    }
+
+    // the tile's operand addresses, opaque to the compiler: it forms the 12
+    // products' descriptors from them at each tile instead of holding them
+    // all in registers across tiles
+    uint32_t qa = q_addr, ka = k_addr + s * F::KV_BYTES, va = v_addr + s * F::KV_BYTES;
+    asm volatile("" : "+r"(qa), "+r"(ka), "+r"(va));
+
+    // S = sum over the kept pairs of q_i K_j^T, the smallest first, each
+    // over the D real columns: st[4j + 2h + c] is row r0 + 8h, key
+    // k_start + 8j + c0 + c
+    float st[BK / 2];
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) st[j] = 0.f;
+    mbar_wait(k_full + s, parity);
+    hold(st);
+    wgmma_fence();
+#pragma unroll
+    for (int p = PAIRS - QK_PRODUCTS; p < PAIRS; ++p)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_qk(st, kmajor_desc<D>(qa + left_term(p) * G::Q_BYTES, G::Q_CHUNK, kk),
+                 kmajor_desc<D>(ka + right_term(p) * G::KV_BYTES, G::KV_CHUNK, kk),
+                 p > PAIRS - QK_PRODUCTS || kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(st);
+    mbar_arrive(k_empty + s);
+
+    // masks and the online softmax, as the bf16 kernel: a row's 64 scores
+    // lie on 4 threads
+    const bool edge = k_start + BK > sk || (causal && k_start + BK - 1 > q0) ||
+                      (window > 0 && q0 + BQ - 1 - k_start >= window);
+    unsigned keep = 0xffffffffu;
+    float top[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) {
+      const int h = (j / 2) % 2;
+      if (edge) {
+        const int row = q0 + r0 + 8 * h;
+        const int col = k_start + 8 * (j / 4) + c0 + j % 2;
+        const bool ok = col < sk && (!causal || row >= col) && (window <= 0 || row - col < window);
+        keep &= ~((ok ? 0u : 1u) << j);
+      }
+      st[j] = (keep >> j) & 1u ? st[j] * scale : NEG_INF;
+      top[h] = fmaxf(top[h], st[j]);
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      top[h] = fmaxf(top[h], __shfl_xor_sync(0xffffffffu, top[h], 1));
+      top[h] = fmaxf(top[h], __shfl_xor_sync(0xffffffffu, top[h], 2));
+      top[h] = fmaxf(m_run[h], top[h]);  // the new running max
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) {
+      const int h = (j / 2) % 2;
+      st[j] = (keep >> j) & 1u ? expf(st[j] - top[h]) : 0.f;
+      sum[h] += st[j];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      alpha[h] = expf(m_run[h] - top[h]);
+      l_run[h] = alpha[h] * l_run[h] + sum[h];
+      m_run[h] = top[h];
+    }
+
+    // P in F32_TERMS bf16 terms, as wgmma A fragments (the bf16 kernel's
+    // split): keys 16kk .. 16kk + 15 are accumulator columns 8kk .. 8kk + 7
+    uint32_t pt[F32_TERMS][BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = st[8 * kk + 2 * j], y = st[8 * kk + 2 * j + 1];
+#pragma unroll
+        for (int t = 0; t < F32_TERMS; ++t) {
+          const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+          pt[t][kk][j] = bf16x2_bits(h);
+          x -= __low2float(h);
+          y -= __high2float(h);
+        }
+      }
+
+    // acc = acc * alpha + sum over the kept pairs of P_i V_j, the tile's
+    // product summed apart first, SW_COLS output columns at a time
+    mbar_wait(v_full + s, parity);
+#pragma unroll
+    for (int c = 0; c < G::CHUNKS; ++c) {
+      float pv[G::SW_COLS / 2];
+#pragma unroll
+      for (int j = 0; j < G::SW_COLS / 2; ++j) pv[j] = 0.f;
+      hold(pv);
+#pragma unroll
+      for (int t = 0; t < F32_TERMS; ++t)
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) hold(pt[t][kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int p = PAIRS - PV_PRODUCTS; p < PAIRS; ++p)
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_pv(pv, pt[left_term(p)][kk],
+                   v_desc<D>(va + right_term(p) * G::KV_BYTES, c, kk),
+                   p > PAIRS - PV_PRODUCTS || kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(pv);
+#pragma unroll
+      for (int t = 0; t < F32_TERMS; ++t)
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) hold(pt[t][kk]);
+#pragma unroll
+      for (int j = 0; j < G::SW_COLS / 2; ++j) {
+        float& a = acc[c * G::SW_COLS / 2 + j];
+        a = fmaf(a, alpha[(j / 2) % 2], pv[j]);
+      }
+    }
+    mbar_arrive(v_empty + s);
+  }
+
+  float* ob = o + ((size_t)ib * hq + ih) * sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + 8 * h;
+    if (row >= sq) continue;
+    const float denom = fmaxf(l_run[h], 1e-30f);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<float2*>(ob + (size_t)row * D + 8 * i + c0) =
+          make_float2(acc[4 * i + 2 * h] / denom, acc[4 * i + 2 * h + 1] / denom);
+  }
+}
+
+// Bytes of scratch the float32 kernel takes: F32_TERMS bf16 planes of q, k
+// and v.
+size_t f32_scratch_bytes(int b, int hq, int hkv, int sq, int sk, int dh) {
+  return sizeof(__nv_bfloat16) * F32_TERMS *
+         ((size_t)b * hq * sq * dh + 2 * (size_t)b * hkv * sk * dh);
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, void* scratch, int b, int hq,
+               int hkv, int sq, int sk, float scale, int causal, int window,
+               cudaStream_t stream) {
+  using F = Geo32<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t nq = (size_t)b * hq * sq * D, nkv = (size_t)b * hkv * sk * D;
+  const size_t most = (nq > nkv ? nq : nkv) / 2;
+  const dim3 split_grid((unsigned)(most < 1024 * 256 ? (most + 255) / 256 : 1024), 3);
+  split_terms_kernel<<<split_grid, 256, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<__nv_bfloat162*>(scratch), nq / 2, nkv / 2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(scratch);
+  const __nv_bfloat16* kp = qp + F32_TERMS * nq;
+  const __nv_bfloat16* vp = kp + F32_TERMS * nkv;
+  CUtensorMap tq, tk, tv;
+  if (!encode<D>(fn, &tq, qp, sq, F32_TERMS * b * hq, BQ) ||
+      !encode<D>(fn, &tk, kp, sk, F32_TERMS * b * hkv, BK) ||
+      !encode<D>(fn, &tv, vp, sk, F32_TERMS * b * hkv, BK))
+    return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(flash_attention_f32_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(hq, b, (sq + F32_WGS * BQ - 1) / (F32_WGS * BQ));
+  flash_attention_f32_kernel<D><<<grid, F32_THREADS, F::SMEM, stream>>>(
+      tq, tk, tv, static_cast<float*>(o), b, hq, hkv, sq, sk, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
 
-// info[0..4] of a kernel as launched: registers, local (spill) bytes a
-// thread, dynamic shared memory a CTA, resident CTAs an SM, and the bf16
-// terms P is summed as (0: P.V in float32 FMAs)
+// info[0..7] of a kernel as launched: registers, local (spill) bytes a
+// thread, dynamic shared memory a CTA, resident CTAs an SM, the bf16 terms
+// P is summed as, the bf16 terms of each of q, k and v (1: bf16 inputs,
+// exact), and the term products of Q.K^T and of P.V
 template <typename K>
-int kernel_info(K* kernel, int threads, int smem, int p_terms, int* info) {
+int kernel_info(K* kernel, int threads, int smem, int p_terms, int terms, int qk_products,
+                int pv_products, int* info) {
   cudaFuncAttributes attr;
   int ctas = 0;
   cudaError_t err =
@@ -742,29 +917,33 @@ int kernel_info(K* kernel, int threads, int smem, int p_terms, int* info) {
   info[2] = smem;
   info[3] = ctas;
   info[4] = p_terms;
+  info[5] = terms;
+  info[6] = qk_products;
+  info[7] = pv_products;
   return 0;
 }
 
 }  // namespace
 
 // q (b, hq, sq, dh), k and v (b, hkv, sk, dh), o like q; all contiguous,
-// float32 (bf16 = 0: the CUDA-core kernel) or bfloat16 (bf16 = 1: the
-// tensor-core kernel, operands 16-byte aligned); window <= 0 means none.
-// Returns the cudaError of the launch; an unsupported dh, or a bf16 operand
-// that no tensor map takes, is cudaErrorInvalidValue (the wrapper names the
-// supported set), a CUDA without cuTensorMapEncodeTiled
-// cudaErrorSymbolNotFound.
+// float32 (bf16 = 0: the float32 kernel, which takes `scratch` of
+// flash_attention_scratch_bytes bytes, 16-byte aligned) or bfloat16 (bf16 =
+// 1: scratch unused, operands 16-byte aligned); window <= 0 means none.
+// Returns the cudaError of the launch; an unsupported dh, a bf16 operand
+// that no tensor map takes or a missing scratch is cudaErrorInvalidValue
+// (the wrapper names the supported set), a CUDA without
+// cuTensorMapEncodeTiled cudaErrorSymbolNotFound.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int b, int hq, int hkv, int sq,
-                                   int sk, int dh, int bf16, float scale,
+                                   void* o, void* scratch, int b, int hq, int hkv,
+                                   int sq, int sk, int dh, int bf16, float scale,
                                    int causal, int window, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FLASH_CASE(D)                                                          \
   case D:                                                                      \
     return bf16 ? tc::launch<D>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, \
                                 window, st)                                    \
-                : launch<float, D>(q, k, v, o, b, hq, hkv, sq, sk, scale,     \
-                                   causal, window, st);
+                : tc::launch_f32<D>(q, k, v, o, scratch, b, hq, hkv, sq, sk,   \
+                                    scale, causal, window, st);
   switch (dh) {
     FLASH_CASE(32)
     FLASH_CASE(64)
@@ -776,16 +955,25 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 #undef FLASH_CASE
 }
 
+// Bytes of scratch flash_attention_fwd takes for these operands (0 for
+// bfloat16).
+extern "C" long long flash_attention_scratch_bytes(int b, int hq, int hkv, int sq, int sk,
+                                                   int dh, int bf16) {
+  return bf16 ? 0 : (long long)tc::f32_scratch_bytes(b, hq, hkv, sq, sk, dh);
+}
+
 // What flash_attention_fwd launches for (dh, bf16), as kernel_info reports
-// it into info[0..4]; returns a cudaError (an unsupported dh is
+// it into info[0..7]; returns a cudaError (an unsupported dh is
 // cudaErrorInvalidValue).
 extern "C" int flash_attention_info(int dh, int bf16, int* info) {
-#define INFO_CASE(D)                                                               \
-  case D:                                                                          \
-    return bf16 ? kernel_info(tc::flash_attention_tc_kernel<D>, tc::THREADS,       \
-                              tc::Geo<D>::SMEM, tc::P_TERMS, info)                 \
-                : kernel_info(flash_attention_kernel<float, D>, THREADS,           \
-                              (int)(smem_floats<D>() * sizeof(float)), 0, info);
+#define INFO_CASE(D)                                                                \
+  case D:                                                                           \
+    return bf16 ? kernel_info(tc::flash_attention_tc_kernel<D>, tc::THREADS,        \
+                              tc::Geo<D>::SMEM, tc::P_TERMS, 1, 1, tc::P_TERMS,     \
+                              info)                                                 \
+                : kernel_info(tc::flash_attention_f32_kernel<D>, tc::F32_THREADS,   \
+                              tc::Geo32<D>::SMEM, tc::F32_TERMS, tc::F32_TERMS,     \
+                              tc::QK_PRODUCTS, tc::PV_PRODUCTS, info);
   switch (dh) {
     INFO_CASE(32)
     INFO_CASE(64)

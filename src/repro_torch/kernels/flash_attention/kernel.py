@@ -86,11 +86,16 @@ def flash_attention_kernel(
     launches the kernel for any ``sq, sk`` (tails are masked in the
     kernel, so there is no block-divisibility fallback) and raises
     ``ValueError`` for a head dim outside :data:`HEAD_DIMS`.  The dtype
-    picks the kernel inside the one entry point: bfloat16 runs on the
-    tensor cores (``wgmma`` on TMA-fed tiles, P summed as three exact
-    bf16 terms), float32 on the CUDA cores; a failed build or launch
-    raises.  Bound: operations, ``4·dh`` flops per live (q, k) pair; see
-    the design note in ``csrc/flash_attention.cu``.
+    picks the kernel inside the one entry point; both run ``wgmma`` on the
+    tensor cores over TMA-fed tiles.  bfloat16 sums P as three exact bf16
+    terms.  float32 first splits q, k and v into three bf16 terms each
+    (exact: a float32 value's 24 bits) in scratch of
+    ``flash_attention_scratch_bytes`` that :func:`launch` allocates, and
+    keeps the six term products of Q·Kᵀ, and of P·V, that carry float32
+    digits.  A failed build or launch raises.  Bound: operations, ``4·dh``
+    flops per live (q, k) pair, at 989 TFLOP/s for bfloat16 and at a sixth
+    of it for float32-accurate work (``roofline.flash_bound``); see the
+    design note in ``csrc/flash_attention.cu``.
 
     Forward only, as the TPU kernel: with grad mode on and any of q, k, v
     requiring grad it raises ``RuntimeError`` on either device, so that a
@@ -148,15 +153,19 @@ def _flash_attention_flops(q_shape, k_shape, v_shape, scale, causal, window, *,
 
 def launch(lib, q, k, v, out, *, scale: float, causal: bool, window: int | None) -> None:
     """One call of ``lib``'s ``flash_attention_fwd`` (a library of
-    :func:`build.load`) on checked CUDA operands, writing ``out``; raises if
-    the launch fails.  Counts nothing: :func:`flash_attention_kernel` is
-    the port's launch."""
+    :func:`build.load`) on checked CUDA operands, writing ``out``, with the
+    float32 kernel's scratch (its bf16 planes of q, k and v) allocated
+    here; raises if the launch fails.  Counts nothing:
+    :func:`flash_attention_kernel` is the port's launch."""
     b, hq, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
+    bf16 = int(q.dtype == torch.bfloat16)
+    nbytes = lib.flash_attention_scratch_bytes(b, hq, hkv, sq, sk, dh, bf16)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
     err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        sq, sk, dh, int(q.dtype == torch.bfloat16), float(scale), int(causal),
-        -1 if window is None else int(window),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, hq, hkv, sq, sk, dh, bf16,
+        float(scale), int(causal), -1 if window is None else int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed with cudaError {err}")

@@ -6,6 +6,8 @@ limit of 700 W; a card set below it runs slower under load):
 
     BF16_TC_FLOPS   989e12   bf16 on the tensor cores
     FP32_FLOPS       67e12   float32 outside the tensor cores
+    F32_SPLIT_PRODUCTS   6   bf16 products a float32-accurate product
+                             takes on the tensor cores
     HBM_BYTES_PER_S 3.35e12  HBM3
     NVLINK_BYTES_PER_S 450e9 NVLink, each way, to the other cards of a host
 
@@ -52,6 +54,10 @@ import torch
 
 BF16_TC_FLOPS = 989e12
 FP32_FLOPS = 67e12
+# A float32 value is exactly three bf16 terms; of the nine term products of
+# two values, the six with i + j <= 2 carry float32's digits (the float32
+# flash kernel keeps those six, in Q·Kᵀ and in P·V).
+F32_SPLIT_PRODUCTS = 6
 HBM_BYTES_PER_S = 3.35e12
 NVLINK_BYTES_PER_S = 450e9
 
@@ -80,13 +86,18 @@ def flash_flops(b, hq, sq, sk, dh, causal, window) -> int:
 
 def flash_bound(q, k, causal, window) -> tuple[float, str, float, float]:
     """Least time of one attention call: :func:`flash_flops` over the
-    dtype's peak, against each operand read once and the output written
-    once over the memory rate.  Returns (ms, bound_by, flops, bytes)."""
+    dtype's rate, against each operand read once and the output written
+    once over the memory rate.  bfloat16 runs at the tensor cores' 989
+    TFLOP/s; float32-accurate work takes F32_SPLIT_PRODUCTS bf16 products
+    for each product on them, 989 / 6 = 164.8 TFLOP/s, above the 67 of
+    float32 FMAs on the CUDA cores (``FP32_FLOPS``, which ``chip_smoke.py``
+    prints beside this bound).
+    Returns (ms, bound_by, flops, bytes)."""
     b, hq, sq, dh = q.shape
     _, hkv, sk, _ = k.shape
     flops = float(flash_flops(b, hq, sq, sk, dh, causal, window))
     nbytes = q.element_size() * (2 * b * hq * sq * dh + 2 * b * hkv * sk * dh)
-    peak = BF16_TC_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    peak = BF16_TC_FLOPS if q.dtype == torch.bfloat16 else BF16_TC_FLOPS / F32_SPLIT_PRODUCTS
     ops_ms, bytes_ms = flops / peak * 1e3, bound_ms(nbytes)
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes
 

@@ -715,11 +715,47 @@ def test_bf16_tensor_core_kernel_matches_plain(cuda, dh, hq, hkv, sq, sk):
 
 def test_bf16_kernel_reports_its_p_terms(cuda):
     """The built library sums P as the 3 bf16 terms that the CPU emulation
-    in tests/test_torch_flash_attention.py holds to the bound; the float32
-    kernel has none."""
+    in tests/test_torch_flash_attention.py holds to the bound (bf16 q, k
+    and v are one exact term each: Q·Kᵀ one product, P·V three); the
+    float32 kernel splits q, k, v and P into 3 bf16 terms each and keeps 6
+    term products of Q·Kᵀ and 6 of P·V, the emulation's KERNEL_F32_TERMS,
+    KERNEL_QK_PRODUCTS and KERNEL_PV_PRODUCTS."""
+    fields = ("p_terms", "terms", "qk_products", "pv_products")
     for dh in HEAD_DIMS:
-        assert flash_build.kernel_info(dh, True)["p_terms"] == 3
-        assert flash_build.kernel_info(dh, False)["p_terms"] == 0
+        for bf16, want in ((True, (3, 1, 1, 3)), (False, (3, 3, 6, 6))):
+            info = flash_build.kernel_info(dh, bf16)
+            assert tuple(info[f] for f in fields) == want
+
+
+# the float32 tensor-core kernel: a CTA is two warpgroups of 64 query rows,
+# so a q tail shorter than 128 rows, a second warpgroup with no row below
+# sq, and windows that its rows see in other tiles than the first's
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (12, 2)])
+@pytest.mark.parametrize("sq,sk", [(130, 200), (60, 40), (1, 37), (200, 330)])
+def test_f32_tensor_core_kernel_matches_plain(cuda, dh, hq, hkv, sq, sk):
+    q, k, v = _qkv(cuda, torch.float32, 2, hq, hkv, sq, sk, dh, seed=dh + hq + sq)
+    for causal, window in ((True, None), (True, 16), (False, None), (False, 24), (True, 100)):
+        reset_flash_counts()
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert flash_counts()["flash_attention"] == 1
+        assert out.dtype == torch.float32 and out.shape == q.shape
+        live = _live_rows(sq, sk, causal, window, cuda)
+        assert torch.equal(out[:, :, ~live], torch.zeros_like(out[:, :, ~live]))
+        assert _flash_worst(out, q, k, v, causal, window, rows=live) <= 1.0
+        assert torch.equal(out, flash_attention(q, k, v, causal=causal, window=window))
+
+
+def test_f32_kernel_takes_operands_at_any_offset(cuda):
+    """The float32 kernel reads q, k and v with plain loads (its tensor maps
+    read the bf16 planes in its own scratch): a q 4 bytes past a 16-byte
+    boundary gives the same result."""
+    q, k, v = _qkv(cuda, torch.float32, 1, 4, 2, 100, 100, 64, seed=3)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16
+    assert torch.equal(flash_attention(shifted, k, v), flash_attention(q, k, v))
 
 
 def test_bf16_kernel_needs_16_byte_aligned_operands(cuda):
@@ -763,14 +799,13 @@ def test_flash_attention_dh80_matches_plain(cuda, dtype, hq, hkv, sq, sk, causal
 @pytest.mark.parametrize("bf16", [True, False])
 def test_flash_attention_info_dh80(cuda, bf16):
     """No spill at dh 80, and the shared memory the analysis mirror
-    computes (the bf16 tiles 128 columns wide)."""
+    computes (both kernels' bf16 tiles 128 columns wide, as at dh 128)."""
     from repro_torch.analysis.kernels import flash_smem_bytes
 
     info = flash_build.kernel_info(80, bf16)
     assert info["spill_bytes"] == 0 and info["ctas_per_sm"] >= 1
     assert info["smem_bytes"] == flash_smem_bytes(80, bf16)
-    assert info["smem_bytes"] == (flash_build.kernel_info(128, True)["smem_bytes"] if bf16
-                                  else 4 * (80 * 68 * 2 + 64 * 68))
+    assert info["smem_bytes"] == flash_build.kernel_info(128, bf16)["smem_bytes"]
 
 
 def test_flash_attention_row_without_live_key_is_zero(cuda):
@@ -898,16 +933,28 @@ def test_mixtral_full_width_flash_route_on_card(cuda):
     dense dispatch, at s 8192 (a quarter of the causal pairs outside its
     window of 4096): the kernel route launches the kernel twice and gives
     the plain route's logits within 1e-4 × (|ref| + mean|ref| of the
-    token's row)."""
+    token's row) on every token that both routes send to the same experts.
+    The two routes round attention differently, so a token at a tie of its
+    router may go elsewhere: as in chip_smoke.py's moe phase
+    (``routing_flips``), each token that first goes elsewhere in a layer
+    must lie within ``FLIP_MARGIN`` (1e-5) of a tie there, and its rows are
+    left out (at this seed a token of layer 1 at a tie goes elsewhere under
+    the float32 tensor-core kernel)."""
+    from chip_smoke import recorded_routing, routing_flips
+
     cfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=2, dtype="float32")
     params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
     toks = torch.randint(0, cfg.vocab, (1, 8192), device=cuda,
                          generator=torch.Generator(device=cuda).manual_seed(6))
     reset_flash_counts()
-    out = forward(cfg, params, toks, moe_dispatch="dense")
+    with recorded_routing() as routing:
+        out = forward(cfg, params, toks, moe_dispatch="dense")
     assert flash_counts()["flash_attention"] == 2
-    ref = forward(cfg, params, toks, moe_dispatch="dense", use_flash_kernel=False)
+    with recorded_routing() as routing_plain:
+        ref = forward(cfg, params, toks, moe_dispatch="dense", use_flash_kernel=False)
     torch.cuda.synchronize()
+    flipped, _ = routing_flips("mixtral-8x22b f32 kernel vs plain route", routing_plain, routing)
+    out, ref = out[:, ~flipped], ref[:, ~flipped]
     mag = ref.abs()
     mag += mag.mean(-1, keepdim=True)
     assert float(out.sub_(ref).abs_().div_(mag).max()) <= 1e-4

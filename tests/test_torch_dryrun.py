@@ -186,6 +186,18 @@ def test_flash_bound_is_the_flash_flops():
     assert roofline.attention_pairs(8, 8, True, 3) == 1 + 2 + 3 * 6
 
 
+def test_flash_bound_of_float32_is_six_bf16_products_a_product():
+    """Float32-accurate work on the tensor cores: three exact bf16 terms of
+    each operand and their six products with i + j <= 2, so the bound is
+    the flops over 989 / 6 TFLOP/s (below the 67 TFLOP/s FMA bound)."""
+    q = torch.empty((2, 16, 1500, 64), dtype=torch.float32, device="meta")
+    ms, by, flops, nbytes = roofline.flash_bound(q, q, False, None)
+    assert roofline.F32_SPLIT_PRODUCTS == 6
+    assert by == "operations" and ms == pytest.approx(flops * 6 / roofline.BF16_TC_FLOPS * 1e3)
+    assert ms < flops / roofline.FP32_FLOPS * 1e3
+    assert nbytes == 4 * 4 * q.numel()
+
+
 @pytest.mark.slow
 @pytest.mark.subprocess
 def test_dryrun_cli_one_cell(tmp_path):

@@ -18,7 +18,17 @@ v; S from exact products with float32 sums; P split into ``n`` bf16
 terms; tile-wise ``acc·alpha + pv``) and holds it to ``chip_smoke.py``'s
 bound on the cases above and one qwen2-vl-2b-width head: the kernel's
 term count keeps it, one term breaks it.
+
+The float32 CUDA kernel runs on the same tensor cores, on q, k, v and P
+each split into three bf16 terms, and keeps six of the nine term
+products of Q·Kᵀ and of P·V.  ``_emulate_f32`` repeats that arithmetic
+and holds it to ``chip_smoke.py``'s float32 bound against the float64
+plain result on the cases above and one head each of qwen2-vl-2b,
+stablelm-3b and whisper-medium's encoder: the kernel's counts keep it
+with room, and one product or one term fewer breaks it.
 """
+import contextlib
+import functools
 import itertools
 
 import jax.numpy as jnp
@@ -230,6 +240,28 @@ RAGGED = [((2, 4, 2, sq, sk, 32), sq + sk, causal, window)
                                          (1, 37, False, None))]
 QWEN_HEAD = [((1, 1, 1, 1024, 1024, 128), 1024, True, None)]  # one (b, h), dh 128
 STABLELM_HEAD = [((1, 1, 1, 1024, 1024, 80), 80, True, None)]  # one (b, h), dh 80
+WHISPER_HEAD = [((1, 1, 1, 1500, 1500, 64), 1500, False, None)]  # one (b, h), not causal
+# The float32 kernel's tc::F32_TERMS (bf16 terms of each of q, k, v and P),
+# its PAIRS (i, j) of terms with i + j < 3, smallest products first
+# (left_term, right_term), and tc::QK_PRODUCTS and tc::PV_PRODUCTS, the
+# last pairs that Q·Kᵀ and P·V keep; the card test
+# test_bf16_kernel_reports_its_p_terms reads the counts from the built library.
+KERNEL_F32_TERMS = 3
+KERNEL_PAIRS = ((0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0))
+KERNEL_QK_PRODUCTS = KERNEL_PV_PRODUCTS = 6
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """Torch on one thread while the emulations run: their products are
+    small, and beside other test workers torch's spinning threads slow
+    them many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _emulate(q, k, v, *, causal, window, terms, block_k=64):
@@ -283,7 +315,8 @@ def _split_ratios(shape, seed, causal, window, terms):
     q, k, v = _port(_inputs(seed, *shape), "bfloat16")
     ref = attention_ref(q.float(), k.float(), v.float(), scale=shape[-1] ** -0.5,
                         causal=causal, window=window)
-    raw = _emulate(q, k, v, causal=causal, window=window, terms=terms)
+    with _one_thread():
+        raw = _emulate(q, k, v, causal=causal, window=window, terms=terms)
     mag = ref.abs()
     f32_bound = FLASH_RTOL * (mag + mag.mean(dim=-1, keepdim=True))
     out = raw.to(torch.bfloat16)
@@ -329,3 +362,121 @@ def test_the_differ_share_tells_two_p_terms_from_three():
     share = {terms: sum(_split_ratios(*case, terms=terms)[2] for case in MATRIX) / len(MATRIX)
              for terms in (KERNEL_P_TERMS, 2)}
     assert share[KERNEL_P_TERMS] <= BF16_DIFFER_SHARE < share[2]
+
+
+# ---------------------------------------------------------------------------
+# the float32 kernel's split of q, k, v and P, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _terms(x, n):
+    """``x`` as ``n`` bf16 terms (held in float32), each the rounding of
+    what the earlier ones leave; three carry a float32 value exactly."""
+    parts, rest = [], x
+    for _ in range(n):
+        parts.append(rest.to(torch.bfloat16).float())
+        rest = rest - parts[-1]
+    return parts
+
+
+def _emulate_f32(q, k, v, *, causal, window,
+                 qk_pairs=KERNEL_PAIRS[len(KERNEL_PAIRS) - KERNEL_QK_PRODUCTS:],
+                 pv_pairs=KERNEL_PAIRS[len(KERNEL_PAIRS) - KERNEL_PV_PRODUCTS:],
+                 terms=(KERNEL_F32_TERMS,) * 4, block_k=64):
+    """The float32 kernel's arithmetic on float32 ``q, k, v``: each split
+    into bf16 terms (``terms`` of q, k, v and P); per 64-key tile S = the
+    sum over ``qk_pairs`` (i, j), in order, of q_i·k_jᵀ (a product of two
+    bf16 terms is exact in float32; float32 sums) times the scale, masked
+    to -1e30; the online max, p = exp(s − m) on live keys, alpha =
+    exp(m_prev − m); P split into its terms; pv = the sum over
+    ``pv_pairs`` of p_i·v_j, in order; acc = acc·alpha + pv; out = acc /
+    max(l, 1e-30).  A pair naming a term past an operand's count is
+    dropped."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    nq, nk, nv, n_p = terms
+    qs = _terms(q, nq)
+    ks = _terms(k.repeat_interleave(hq // hkv, dim=1), nk)
+    vs = _terms(v.repeat_interleave(hq // hkv, dim=1), nv)
+    qk_pairs = [(i, j) for i, j in qk_pairs if i < nq and j < nk]
+    pv_pairs = [(i, j) for i, j in pv_pairs if i < n_p and j < nv]
+    acc = torch.zeros(b, hq, sq, dh)
+    m = torch.full((b, hq, sq, 1), -1e30)
+    l = torch.zeros(b, hq, sq, 1)
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, block_k):
+        kpos = torch.arange(k0, min(k0 + block_k, sk))[None, :]
+        mask = torch.ones(sq, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            mask &= qpos >= kpos
+        if window is not None:
+            mask &= qpos - kpos < window
+        s = torch.zeros(b, hq, sq, kpos.shape[1])
+        for i, j in qk_pairs:
+            s = s + qs[i] @ ks[j][:, :, k0:k0 + block_k].transpose(-1, -2)
+        s = torch.where(mask, s * dh**-0.5, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), torch.tensor(0.0))
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        m = m_new
+        ps = _terms(p, n_p)
+        pv = torch.zeros_like(acc)
+        for i, j in pv_pairs:
+            pv = pv + ps[i] @ vs[j][:, :, k0:k0 + block_k]
+        acc = acc * alpha + pv
+    return acc / torch.clamp(l, min=1e-30)
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_case(shape, seed, causal, window):
+    """Float32 inputs of a case and the float64 plain result on them, which
+    chip_smoke.py holds the float32 kernel to."""
+    q, k, v = _port(_inputs(seed, *shape), "float32")
+    ref = attention_ref(q.double(), k.double(), v.double(), scale=shape[-1] ** -0.5,
+                        causal=causal, window=window)
+    return q, k, v, ref
+
+
+def _f32_ratio(shape, seed, causal, window, **emulate):
+    """Worst entry of the emulated float32 kernel over chip_smoke.py's
+    float32 bound, FLASH_RTOL·(|ref| + row mean|ref|) against the float64
+    plain result."""
+    q, k, v, ref = _f32_case(shape, seed, causal, window)
+    with _one_thread():
+        out = _emulate_f32(q, k, v, causal=causal, window=window, **emulate).double()
+    mag = ref.abs()
+    return float(((out - ref).abs() / (FLASH_RTOL * (mag + mag.mean(dim=-1, keepdim=True))))
+                 .max())
+
+
+@pytest.mark.parametrize("shape,seed,causal,window",
+                         MATRIX + RAGGED + QWEN_HEAD + STABLELM_HEAD + WHISPER_HEAD)
+def test_the_f32_kernels_terms_keep_the_bound(shape, seed, causal, window):
+    """With the kernel's terms and products every entry keeps half the
+    float32 bound against the float64 plain result (measured: at most 0.14
+    of it).  The tensor cores' own order and rounding of their sums are not
+    emulated: chip_smoke.py holds the kernel to the same bound on the
+    card."""
+    assert _f32_ratio(shape, seed, causal, window) <= 0.5
+
+
+@pytest.mark.parametrize("side", ["qk", "pv"])
+@pytest.mark.parametrize("pair", KERNEL_PAIRS)
+def test_one_f32_product_fewer_breaks_the_bound(side, pair):
+    """Each of the six products of Q·Kᵀ, and of P·V, is needed: without it
+    some entry of the reference's test matrix passes the float32 bound
+    (measured: at least 1.33 times it, without p_2·v_0)."""
+    kept = tuple(p for p in KERNEL_PAIRS if p != pair)
+    worst = max(_f32_ratio(*case, **{f"{side}_pairs": kept}) for case in MATRIX)
+    assert worst > 1.0
+
+
+@pytest.mark.parametrize("operand", range(4))
+def test_one_f32_term_fewer_breaks_the_bound(operand):
+    """Two bf16 terms of q, of k, of v or of P (the products on its third
+    dropped) carry 16 of float32's 24 bits: the test matrix passes the
+    float32 bound (measured: 1.33 times it at the least, P)."""
+    terms = [KERNEL_F32_TERMS] * 4
+    terms[operand] -= 1
+    worst = max(_f32_ratio(*case, terms=tuple(terms)) for case in MATRIX)
+    assert worst > 1.0
